@@ -2,7 +2,9 @@
 
 A package of its own beside the JAX package: it imports torch and nothing
 of ``repro`` or ``jax``. Its entry points run on a CUDA device unless the
-caller passes CPU tensors. The dense main path — ``CholFactor.update`` /
-``downdate`` through ``core.api`` and ``core.backends`` to the fused chain
-— runs on the hand-written CUDA kernel in ``kernels/csrc/``.
+caller passes CPU tensors. ``CholFactor.update`` / ``downdate`` go
+through ``core.api`` and ``core.backends`` to hand-written CUDA kernels in
+``kernels/csrc/``: the fused chain (the dense main path), the paper's
+per-panel cascade (``pallas``, ``pallas_gemm``) and the block-tridiagonal
+chain of a structured factor (``blocktridiag``).
 """

@@ -1,4 +1,4 @@
-"""Dense rank-k Cholesky up/down-dating, PyTorch port of ``repro.core``."""
+"""Rank-k Cholesky up/down-dating, PyTorch port of ``repro.core``."""
 from repro_torch.core.api import (  # noqa: F401
     chol_downdate,
     chol_downdate_batched,
@@ -19,4 +19,14 @@ from repro_torch.core.solve import (  # noqa: F401
     downdate_feasible,
     is_positive_factor,
     solve_triangular,
+)
+from repro_torch.core.structure import (  # noqa: F401
+    BlockTriDiagStorage,
+    DenseStorage,
+    FactorStorage,
+    anchor_block,
+    as_storage,
+    assert_blocklocal,
+    chol_update_blocktridiag_ref,
+    is_factor_storage,
 )

@@ -5,17 +5,21 @@ is a registered implementation of ONE protocol::
 
     update(L, V, *, sigma, panel, interpret, precision, **opts) -> L_new
 
-``L`` is ``(n, n)`` or a ``(B, n, n)`` fleet. The registered paths are the
-serial oracle ``reference``, the panelled drivers ``paper`` and ``gemm``,
-and the single-launch ``fused`` kernel (the CUDA kernel on CUDA tensors,
-its plain version on CPU tensors). The per-panel kernels, the sharded
-driver and the structured backends are not ported yet (ROADMAP queues 1
-and 2); asking for them raises like an unknown name.
+``L`` is ``(n, n)``, a ``(B, n, n)`` fleet, or a structured storage
+(``repro_torch.core.structure``); each backend declares the structures it
+takes. Dense: the serial oracle ``reference``, the panelled drivers
+``paper`` and ``gemm``, the per-panel kernel cascade ``pallas`` /
+``pallas_gemm`` (2 n_panels - 1 launches) and the single-launch ``fused``
+chain. Block-tridiagonal: the block-chain kernel ``blocktridiag`` and its
+plain twin ``blocktridiag_ref``. The kernel backends launch their CUDA
+kernels on CUDA tensors and run their plain versions on CPU tensors. The
+sharded driver is not ported yet (ROADMAP queue 1 item 9).
 
 ``resolve('auto')`` keys on the device kind of the factor's tensor: CUDA
 (or any Pallas-capable kind the JAX package knows, or explicit interpret
-mode) -> ``fused``; otherwise ``reference`` under two panels and ``gemm``
-beyond.
+mode) -> ``fused`` (dense) / ``blocktridiag`` (structured); otherwise
+``reference`` under two panels and ``gemm`` beyond (dense) /
+``blocktridiag_ref`` (structured).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import structure as _structure
 from repro_torch.core.precision import Precision
 from repro_torch.obs import metrics as obs_metrics
 
@@ -81,9 +86,11 @@ class Backend:
     fn: Callable
     kind: str  # 'serial' | 'blocked' | 'kernel'
     description: str
-    # Whether ``fn`` takes a (B, n, n) fleet itself (one launch); the others
-    # run member by member.
+    # Whether ``fn`` takes a fleet itself (one launch per sign block); the
+    # others run member by member.
     batched: bool = False
+    # Storage structures the backend takes (``repro_torch.core.structure``).
+    structures: Tuple[str, ...] = ("dense",)
 
     def __call__(self, L, V, *, sigma, panel, interpret, precision=None,
                  **opts):
@@ -95,7 +102,12 @@ class Backend:
             V = precision.cast_storage(V)
         kw = dict(sigma=sigma, panel=panel, interpret=interpret,
                   precision=precision, **opts)
-        if L.ndim == 3 and not self.batched:
+        structured = _structure.is_factor_storage(L)
+        fleet = L.batched if structured else L.ndim == 3
+        if fleet and not self.batched:
+            if structured:
+                return type(L).stack([self.fn(m, v, **kw)
+                                      for m, v in zip(L.members(), V)])
             return torch.stack([self.fn(l, v, **kw) for l, v in zip(L, V)])
         return self.fn(L, V, **kw)
 
@@ -104,13 +116,14 @@ _REGISTRY: Dict[str, Backend] = {}
 
 
 def register(name: str, *, kind: str, description: str,
-             batched: bool = False):
+             batched: bool = False, structures: Tuple[str, ...] = ("dense",)):
     """Decorator registering ``fn`` as backend ``name``."""
 
     def deco(fn: Callable) -> Callable:
         if name in _REGISTRY:
             raise ValueError(f"backend {name!r} already registered")
-        _REGISTRY[name] = Backend(name, fn, kind, description, batched)
+        _REGISTRY[name] = Backend(name, fn, kind, description, batched,
+                                  tuple(structures))
         return fn
 
     return deco
@@ -125,33 +138,69 @@ def get(name: str) -> Backend:
             f"method must be one of {methods()}, got {name!r}") from None
 
 
-def names() -> Tuple[str, ...]:
-    """Registered backend names, registration order."""
-    return tuple(_REGISTRY)
+def names(structure: Optional[str] = None) -> Tuple[str, ...]:
+    """Registered backend names, registration order; ``structure=`` keeps
+    those that take that storage structure."""
+    return tuple(name for name, b in _REGISTRY.items()
+                 if structure is None or structure in b.structures)
 
 
-def methods() -> Tuple[str, ...]:
-    """Valid ``method=`` strings: every backend plus the 'auto' heuristic."""
-    return names() + ("auto",)
+def methods(structure: Optional[str] = None) -> Tuple[str, ...]:
+    """Valid ``method=`` strings: every backend (for ``structure``, when
+    given) plus the 'auto' heuristic, which resolves per structure."""
+    return names(structure) + ("auto",)
 
 
 def resolve(method: str, *, n: int, panel: int = 256,
-            interpret: Optional[bool] = None, device=None) -> str:
+            interpret: Optional[bool] = None, device=None,
+            structure: str = "dense") -> str:
     """Map ``method`` (possibly 'auto') to a concrete backend name.
 
-    'auto' picks the single-launch ``fused`` chain on every kernel-capable
-    device kind (CUDA tensors) or under explicit interpret mode; otherwise
-    the serial oracle for problems under two panels and the transform-GEMM
-    driver beyond.
+    An explicit ``method`` must take ``structure``: a dense-only backend
+    asked to modify structured storage raises here, naming the valid set.
+
+    Dense 'auto' picks the single-launch ``fused`` chain on every
+    kernel-capable device kind (CUDA tensors) or under explicit interpret
+    mode; otherwise the serial oracle for problems under two panels and the
+    transform-GEMM driver beyond. Block-tridiagonal 'auto' picks the
+    block-chain kernel ``blocktridiag`` in the same cases and its plain
+    twin ``blocktridiag_ref`` otherwise.
     """
     if method != "auto":
-        get(method)  # validate the name
+        backend = get(method)  # validate the name first
+        if structure not in backend.structures:
+            raise ValueError(
+                f"method {method!r} supports structures "
+                f"{backend.structures}, not {structure!r}; valid methods "
+                f"for {structure!r}: {methods(structure)}")
         return method
-    if device_kind(device) in PALLAS_DEVICE_KINDS or interpret:
+    kernel = device_kind(device) in PALLAS_DEVICE_KINDS or interpret
+    if structure == "blocktridiag":
+        return "blocktridiag" if kernel else "blocktridiag_ref"
+    if kernel:
         return "fused"
     if n < 2 * panel:
         return "reference"
     return "gemm"
+
+
+def modeled_bytes_per_update(*, structure: str, n: int, panel: int, k: int,
+                             storage_dtype, nblocks: int = 0,
+                             block: int = 0) -> int:
+    """The bandwidth model for ONE rank-k modification, by layout: dense,
+    every upper tile of the padded factor read and written once and V^T
+    read once (``fused.bytes_per_update``); block-tridiagonal, the diag and
+    padded off block stacks read and written and V^T read once
+    (``blocktridiag.bytes_per_update``)."""
+    # The kernel modules import this one: module-level imports would cycle.
+    if structure == "blocktridiag":
+        from repro_torch.kernels import blocktridiag
+
+        return blocktridiag.bytes_per_update(nblocks, block, k,
+                                             storage_dtype=storage_dtype)
+    from repro_torch.kernels import fused
+
+    return fused.bytes_per_update(n, panel, k, storage_dtype=storage_dtype)
 
 
 def dispatch(L, V, *, sigma, method, panel, interpret, precision=None,
@@ -162,25 +211,28 @@ def dispatch(L, V, *, sigma, method, panel, interpret, precision=None,
     the fleet size) in the port's registry, labeled by backend, lowering,
     dtype and sign. Counts are per eager call.
     """
-    n = L.shape[-1]
+    structure = getattr(L, "structure", "dense")
+    n = L.shape[-1] if structure == "dense" else L.n
     name = resolve(method, n=n, panel=panel, interpret=interpret,
-                   device=L.device)
+                   device=L.device, structure=structure)
     policy = Precision.parse(precision)
     storage_dt = L.dtype if policy is None else policy.storage_for(L.dtype)
     lowering = (resolve_lowering(opts.get("lowering")) if name == "fused"
                 else "none")
-    labels = dict(backend=name, structure="dense", lowering=lowering,
+    labels = dict(backend=name, structure=structure, lowering=lowering,
                   dtype=str(storage_dt).replace("torch.", ""),
                   sign="up" if sigma > 0 else "down")
     obs_metrics.counter("repro.backends.resolve", method=method,
                         **labels).inc()
-    batch = L.shape[0] if L.ndim == 3 else 1
-    # The kernel module imports this one: a module-level import would cycle.
-    from repro_torch.kernels.fused import bytes_per_update
-
+    if structure == "dense":
+        batch = L.shape[0] if L.ndim == 3 else 1
+    else:
+        batch = L.batch or 1
     obs_metrics.counter("repro.backends.bytes", **labels).inc(
-        batch * bytes_per_update(n, panel, V.shape[-1],
-                                 storage_dtype=storage_dt))
+        batch * modeled_bytes_per_update(
+            structure=structure, n=n, panel=panel, k=V.shape[-1],
+            storage_dtype=storage_dt, nblocks=getattr(L, "nblocks", 0),
+            block=getattr(L, "block", 0)))
     return get(name)(L, V, sigma=sigma, panel=panel, interpret=interpret,
                      precision=precision, **opts)
 
@@ -223,6 +275,32 @@ def _gemm(L, V, *, sigma, panel, interpret, precision=None, **opts):
                                        strategy="gemm", precision=precision)
 
 
+@register("pallas", kind="kernel", batched=True,
+          description="per-panel kernels (diagonal pass + element-wise "
+                      "panel apply per panel): CUDA on CUDA tensors, their "
+                      "plain versions on the CPU")
+def _pallas(L, V, *, sigma, panel, interpret, precision=None, **opts):
+    from repro_torch.kernels import ops as kernel_ops
+
+    return kernel_ops.chol_update_pallas(L, V, sigma=sigma, panel=panel,
+                                         strategy="paper",
+                                         interpret=interpret,
+                                         precision=precision, **opts)
+
+
+@register("pallas_gemm", kind="kernel", batched=True,
+          description="per-panel kernels (diagonal pass + transform-GEMM "
+                      "panel apply per panel): CUDA on CUDA tensors, their "
+                      "plain versions on the CPU")
+def _pallas_gemm(L, V, *, sigma, panel, interpret, precision=None, **opts):
+    from repro_torch.kernels import ops as kernel_ops
+
+    return kernel_ops.chol_update_pallas(L, V, sigma=sigma, panel=panel,
+                                         strategy="gemm",
+                                         interpret=interpret,
+                                         precision=precision, **opts)
+
+
 @register("fused", kind="kernel", batched=True,
           description="single-launch fused chain: hand-written CUDA kernel "
                       "on CUDA tensors, its plain version on the CPU "
@@ -233,3 +311,32 @@ def _fused(L, V, *, sigma, panel, interpret, precision=None, **opts):
     return kernel_fused.chol_update_fused(L, V, sigma=sigma, panel=panel,
                                           interpret=interpret,
                                           precision=precision, **opts)
+
+
+@register("blocktridiag", kind="kernel", batched=True,
+          structures=("blocktridiag",),
+          description="block-chain kernel for block-bidiagonal factors: one "
+                      "launch per sign block for a factor or a fleet, "
+                      "O(n*b) bytes (DESIGN.md §12)")
+def _blocktridiag(L, V, *, sigma, panel, interpret, precision=None, **opts):
+    del panel  # the chain's tile is the storage's block size
+    opts.pop("lowering", None)  # one lowering; accepted and ignored
+    from repro_torch.kernels import blocktridiag as kernel_btd
+
+    return kernel_btd.chol_update_blocktridiag(L, V, sigma=sigma,
+                                               interpret=interpret,
+                                               precision=precision, **opts)
+
+
+@register("blocktridiag_ref", kind="blocked", structures=("blocktridiag",),
+          description="plain block chain (diagonal pass + transform-GEMM "
+                      "apply per block), the twin of the block-chain kernel")
+def _blocktridiag_ref(L, V, *, sigma, panel, interpret, precision=None,
+                      **opts):
+    del panel, interpret
+    opts.pop("lowering", None)
+    from repro_torch.core import structure
+
+    return structure.chol_update_blocktridiag_ref(L, V, sigma=sigma,
+                                                  precision=precision,
+                                                  **opts)

@@ -13,7 +13,7 @@ panel-apply strategies:
 """
 from __future__ import annotations
 
-from typing import Literal, Optional
+from typing import Callable, Literal, Optional
 
 import torch
 
@@ -118,6 +118,8 @@ def chol_update_blocked(
     sigma: int = 1,
     panel: int = 256,
     strategy: Strategy = "gemm",
+    apply_fn: Optional[Callable] = None,
+    diag_fn: Optional[Callable] = None,
     precision: Optional[Precision] = None,
 ):
     """Panelled rank-k up/down-date of one ``(n, n)`` factor.
@@ -126,33 +128,56 @@ def chol_update_blocked(
     the running ``V^T`` are stored in the storage dtype between panel
     steps, while the diagonal recurrence and the panel applies compute in
     the accumulation dtype.
+
+    The hooks are where the per-panel kernels plug in (``kernels/ops.py``):
+    ``diag_fn(D, vtd, sigma) -> (D_new, c, s, T)`` replaces the diagonal
+    pass and ``apply_fn(R, vt, c, s, T, sigma) -> (R_new, vt_new)`` the
+    off-diagonal panel apply. Both receive views of the padded factor and
+    ``V^T`` in the storage dtype. A hook may work in place and return the
+    very views it was given; the driver then copies nothing back (an
+    in-place diagonal pass leaves the slab annihilated, as the recurrence
+    does). With ``diag_fn`` the factor may be a (B, n, n) fleet, ``V``
+    (B, n, k), which the hooks take whole.
     """
     _ref._check_sigma(sigma)
     if strategy not in ("paper", "gemm"):
         raise ValueError(f"strategy must be 'paper' or 'gemm', got {strategy!r}")
-    if V.ndim == 1:
-        V = V[:, None]
+    if V.ndim == L.ndim - 1:
+        V = V[..., None]
+    if L.ndim != 2 and diag_fn is None:
+        raise ValueError("a (B, n, n) fleet needs a diag_fn that takes it "
+                         f"whole, got L of shape {tuple(L.shape)}")
     if precision is not None:
         L = precision.cast_storage(L)
         V = precision.cast_storage(V)
     up = (lambda x: x) if precision is None else precision.up
     store = L.dtype
     L, V, n = _pad_to_panels(L.clone(), V, panel)
-    vt = V.T.clone()
-    n_pad = L.shape[0]
+    vt = V.mT.clone(memory_format=torch.contiguous_format)
+    n_pad = L.shape[-1]
+    with_T = strategy == "gemm" or apply_fn is not None
     for r0 in range(0, n_pad, panel):
         r1 = r0 + panel
-        D_new, c, s, T = panel_diag(up(L[r0:r1, r0:r1]), up(vt[:, r0:r1]),
-                                    sigma, with_transform=strategy == "gemm")
-        L[r0:r1, r0:r1] = D_new.to(store)
-        vt[:, r0:r1] = 0.0
+        D, vtd = L[..., r0:r1, r0:r1], vt[..., r0:r1]
+        if diag_fn is None:
+            D_new, c, s, T = panel_diag(up(D), up(vtd), sigma,
+                                        with_transform=with_T)
+        else:
+            D_new, c, s, T = diag_fn(D, vtd, sigma)
+        if D_new is not D:
+            D.copy_(D_new.to(store))
+            vtd.zero_()
         if r1 == n_pad:
             continue
-        R, vtr = up(L[r0:r1, r1:]), up(vt[:, r1:])
-        if strategy == "gemm":
-            R_new, vtr_new = panel_apply_gemm(R, vtr, T)
+        R, vtr = L[..., r0:r1, r1:], vt[..., r1:]
+        if apply_fn is not None:
+            R_new, vtr_new = apply_fn(R, vtr, c, s, T, sigma)
+        elif strategy == "gemm":
+            R_new, vtr_new = panel_apply_gemm(up(R), up(vtr), T)
         else:
-            R_new, vtr_new = panel_apply_paper(R, vtr, c, s, sigma)
-        L[r0:r1, r1:] = R_new.to(store)
-        vt[:, r1:] = vtr_new.to(store)
-    return L[:n, :n]
+            R_new, vtr_new = panel_apply_paper(up(R), up(vtr), c, s, sigma)
+        if R_new is not R:
+            R.copy_(R_new.to(store))
+        if vtr_new is not vtr:
+            vtr.copy_(vtr_new.to(store))
+    return L[..., :n, :n]

@@ -1,9 +1,9 @@
 """``CholFactor``: the maintained Cholesky factor, PyTorch port.
 
-Port of ``repro.core.factor`` for dense data. The factor absorbs rank-k
-modifications without refactorization; this type holds the upper factor
-plus its execution metadata (panel size, backend name, dtype policy,
-interpret flag, lowering)::
+Port of ``repro.core.factor``. The factor absorbs rank-k modifications
+without refactorization; this type holds the upper factor plus its
+execution metadata (panel size, backend name, dtype policy, interpret
+flag, lowering)::
 
     f = CholFactor.from_matrix(A)    # on CUDA unless A is a CPU tensor
     f = f.update(V)                  # A + V V^T, no refactorization
@@ -11,10 +11,12 @@ interpret flag, lowering)::
     x = f.solve(b)
     ld = f.logdet()
 
-The JAX pytree becomes a frozen dataclass holding one tensor. ``data`` may
-be ``(B, n, n)`` — a fleet of per-user factors; every method batches over
-the leading axis, and an update of the fleet is one kernel launch on the
-``fused`` backend.
+The JAX pytree becomes a frozen dataclass. ``data`` is a tensor, ``(n, n)``
+or ``(B, n, n)`` (a fleet of per-user factors, one kernel launch per
+update on the ``fused`` backend), or a structured storage
+(``repro_torch.core.structure``): ``CholFactor.from_blocktridiag`` keeps
+the O(n·b) factor of a block-tridiagonal matrix. The layout-specific
+operations delegate to the storage.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import api, backends
-from repro_torch.core import solve as _solve
+from repro_torch.core import structure as _structure
 from repro_torch.core.precision import Precision
 from repro_torch.obs import metrics as obs_metrics
 
@@ -35,7 +37,8 @@ class CholFactor:
     """Upper Cholesky factor (``A = L^T L``) + execution metadata.
 
     Attributes:
-      data: (n, n) — or (B, n, n) batched — upper-triangular factor(s).
+      data: (n, n) — or (B, n, n) batched — upper-triangular factor(s), or
+        a structured storage such as ``BlockTriDiagStorage``.
       panel: row-panel size for the blocked/kernel backends.
       backend: registry name or 'auto' (resolved per call).
       interpret: None picks by device; True asks for the fused kernel's
@@ -64,8 +67,29 @@ class CholFactor:
 
     @classmethod
     def from_factor(cls, L, *, device=None, **meta) -> "CholFactor":
-        """Wrap an existing upper factor (no validation)."""
+        """Wrap an existing upper factor or storage (no validation)."""
         return cls(api.as_tensor(L, device), **meta)
+
+    @classmethod
+    def from_storage(cls, storage, **meta) -> "CholFactor":
+        """Wrap a ``FactorStorage`` (dense storage unwraps to the tensor)."""
+        return cls(storage.raw, **meta)
+
+    @classmethod
+    def from_blocktridiag(cls, Ad, Ao, *, device=None,
+                          **meta) -> "CholFactor":
+        """Factor a block-tridiagonal SPD matrix given as blocks.
+
+        ``Ad``: (nb, b, b) diagonal blocks; ``Ao``: (nb-1, b, b)
+        super-diagonal blocks ``A[j, j+1]`` (a leading fleet axis on both
+        makes a fleet). O(nb·b³) work, O(n·b) memory: the (n, n) matrix is
+        never formed. Tensors keep their device; anything else goes to
+        ``device``, default CUDA.
+        """
+        Ad = api.as_tensor(Ad, device)
+        Ao = api.as_tensor(Ao, Ad.device)
+        return cls(_structure.BlockTriDiagStorage.from_matrix_blocks(Ad, Ao),
+                   **meta)
 
     @classmethod
     def identity(cls, n: int, *, scale: float = 1.0,
@@ -80,16 +104,22 @@ class CholFactor:
 
     # -- metadata views -----------------------------------------------------
     @property
+    def storage(self) -> "_structure.FactorStorage":
+        """The layout delegate (dense data gets wrapped, no copy)."""
+        return _structure.as_storage(self.data)
+
+    @property
     def structure(self) -> str:
-        return "dense"
+        """'dense' or a structured layout name ('blocktridiag')."""
+        return getattr(self.data, "structure", "dense")
 
     @property
     def n(self) -> int:
-        return self.data.shape[-1]
+        return self.storage.n
 
     @property
     def batched(self) -> bool:
-        return self.data.ndim == 3
+        return self.storage.batched
 
     @property
     def dtype(self):
@@ -107,7 +137,7 @@ class CholFactor:
         obs_metrics.counter(
             "repro.core.mutations",
             op="update" if sigma > 0 else "downdate",
-            structure="dense", backend=self.backend).inc()
+            structure=self.structure, backend=self.backend).inc()
         opts = {}
         if self.lowering is not None and self.backend in ("auto", "fused"):
             opts["lowering"] = self.lowering
@@ -133,61 +163,76 @@ class CholFactor:
         the unchanged factor where it does not (``ok`` says which, per
         fleet member). Both branches are computed.
         """
-        obs_metrics.counter("repro.core.guard_calls", structure="dense",
+        obs_metrics.counter("repro.core.guard_calls",
+                            structure=self.structure,
                             backend=self.backend).inc()
         V = api.as_tensor(V, self.device)
         down = self.downdate(V)
         ok = self.downdate_feasible(V)
+        if self.structure != "dense":
+            # The verdict gates every block: scalar for one factor, (B,)
+            # broadcast over each stack's block axes for a fleet.
+            def pick(d, o):
+                return torch.where(
+                    ok.reshape(ok.shape + (1,) * (d.ndim - ok.ndim)), d, o)
+
+            new = type(self.data)(pick(down.data.diag, self.data.diag),
+                                  pick(down.data.off, self.data.off))
+            return dataclasses.replace(self, data=new), ok
         mask = ok[..., None, None] if self.batched else ok
         new = torch.where(mask, down.data, self.data)
         return dataclasses.replace(self, data=new), ok
 
     def scale(self, alpha) -> "CholFactor":
         """Factor of ``alpha^2 * A``; only ``|alpha|`` matters, so a negative
-        multiplier cannot flip the positive diagonal."""
+        multiplier cannot flip the positive diagonal. Every block of a
+        structured factor scales alike."""
+        if self.structure != "dense":
+            return dataclasses.replace(self, data=self.data.scale(alpha))
         return dataclasses.replace(self, data=self.data * abs(alpha))
 
     # -- consumer operations ------------------------------------------------
+    # Layout-specific: delegated to the storage (repro_torch.core.structure).
     def solve(self, b):
         """Solve ``A x = b`` against the maintained factor."""
-        return _solve.chol_solve(self.data, api.as_tensor(b, self.device))
+        return self.storage.solve(api.as_tensor(b, self.device))
 
     def solve_triangular(self, b, *, trans: bool):
         """One triangular solve: ``L^T x = b`` (trans) or ``L x = b``."""
-        return _solve.solve_triangular(self.data,
-                                       api.as_tensor(b, self.device),
-                                       trans=trans)
+        return self.storage.solve_triangular(api.as_tensor(b, self.device),
+                                             trans=trans)
 
     def logdet(self):
         """``log det A`` from the maintained diagonal."""
-        return _solve.chol_logdet(self.data)
+        return self.storage.logdet()
 
     def downdate_feasible(self, V):
         """True where ``A - V V^T`` stays PD (per batch element)."""
         V = api.as_tensor(V, self.device)
         if V.dtype != self.dtype:
             V = V.to(self.dtype)
-        return _solve.downdate_feasible(self.data, V)
+        return self.storage.downdate_feasible(V)
 
     def is_valid(self, *, tol: float = 0.0):
         """Strictly positive diagonal — the factor invariant."""
-        return _solve.is_positive_factor(self.data, tol=tol)
+        return self.storage.is_valid(tol=tol)
 
     def diagonal(self):
-        """The factor's diagonal (sqrt of A's pivots)."""
-        return torch.diagonal(self.data, dim1=-2, dim2=-1)
+        """The factor's diagonal (sqrt of A's pivots), any layout."""
+        return self.storage.diagonal()
 
     def matrix(self):
         """Materialise ``A = L^T L`` (O(n^3) — diagnostics only)."""
-        return self.data.mT @ self.data
+        return self.storage.matrix()
 
     def __repr__(self):
-        shape = "x".join(str(s) for s in self.data.shape)
-        return (f"CholFactor({shape} {self.dtype} on {self.device}, "
-                f"panel={self.panel}, backend={self.backend!r})")
+        return (f"CholFactor({self.storage.describe()} {self.dtype} on "
+                f"{self.device}, panel={self.panel}, "
+                f"backend={self.backend!r})")
 
 
 def resolve_backend_for(factor: CholFactor) -> str:
     """The concrete backend a factor's next mutation will run on."""
     return backends.resolve(factor.backend, n=factor.n, panel=factor.panel,
-                            interpret=factor.interpret, device=factor.device)
+                            interpret=factor.interpret, device=factor.device,
+                            structure=factor.structure)

@@ -4,8 +4,11 @@ The JAX package's ``CholFactor`` state is its ``data`` array plus its
 metadata (panel, backend, precision preset, lowering). ``factor_from_numpy``
 builds the port's ``CholFactor`` from that state as numpy values, and
 ``factor_to_numpy`` gives it back, so both packages can be driven from the
-same state. Nothing of the JAX package is imported: numpy arrays and plain
-values cross the boundary.
+same state. A block-tridiagonal factor's state is its ``(diag, off)`` block
+stacks (``BlockTriDiagStorage``), one factor or a fleet: pass the pair as
+``data``, or use ``storage_from_numpy`` / ``storage_to_numpy``. Nothing of
+the JAX package is imported: numpy arrays and plain values cross the
+boundary.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from repro_torch.core import backends
 from repro_torch.core.factor import CholFactor
 from repro_torch.core.precision import Precision
+from repro_torch.core.structure import BlockTriDiagStorage
 
 # The JAX package's lowerings: 'mosaic' is its TPU-only spec; the port's
 # one lowering computes the same chain.
@@ -46,14 +50,35 @@ def _to_tensor(data, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
+def storage_from_numpy(diag, off, *, device=None) -> BlockTriDiagStorage:
+    """The port's ``BlockTriDiagStorage`` from the JAX package's ``diag``
+    and ``off`` block stacks as numpy arrays (4-D for a fleet). ``device``
+    defaults to CUDA."""
+    from repro_torch.core.api import default_device
+
+    dev = default_device(device)
+    return BlockTriDiagStorage(_to_tensor(diag, dev), _to_tensor(off, dev))
+
+
+def storage_to_numpy(storage: BlockTriDiagStorage):
+    """``(diag, off)`` as numpy arrays (bf16 widened to fp32, exactly)."""
+    out = []
+    for x in (storage.diag, storage.off):
+        x = x.detach()
+        out.append((x.float() if x.dtype == torch.bfloat16 else x)
+                   .cpu().numpy())
+    return tuple(out)
+
+
 def factor_from_numpy(data, *, panel: int = 256, backend: str = "auto",
                       precision=None, lowering: Optional[str] = None,
                       interpret: Optional[bool] = None,
                       device=None) -> CholFactor:
     """A port ``CholFactor`` from the JAX package's factor state.
 
-    ``device`` defaults to CUDA (the port's rule); pass ``'cpu'`` to keep
-    the state on the host.
+    ``data`` is the dense array, or a ``(diag, off)`` pair for a
+    block-tridiagonal factor. ``device`` defaults to CUDA (the port's
+    rule); pass ``'cpu'`` to keep the state on the host.
     """
     if backend not in backends.methods():
         raise ValueError(f"backend {backend!r} is not ported; the port's "
@@ -62,7 +87,11 @@ def factor_from_numpy(data, *, panel: int = 256, backend: str = "auto",
         raise ValueError(f"unknown lowering {lowering!r}")
     from repro_torch.core.api import default_device
 
-    return CholFactor(_to_tensor(data, default_device(device)), panel=panel,
+    if isinstance(data, tuple):
+        state = storage_from_numpy(*data, device=device)
+    else:
+        state = _to_tensor(data, default_device(device))
+    return CholFactor(state, panel=panel,
                       backend=backend, interpret=interpret,
                       precision=_precision_from(precision),
                       lowering=None if lowering == "mosaic" else lowering)
@@ -71,17 +100,22 @@ def factor_from_numpy(data, *, panel: int = 256, backend: str = "auto",
 def factor_to_numpy(factor: CholFactor):
     """``(data, meta)``: the factor's array as numpy plus its metadata.
 
-    bf16 data comes back widened to fp32 (exact); the precision entry is a
-    ``(storage, accum)`` pair of dtype names, which ``factor_from_numpy``
-    and the JAX package's ``Precision(storage=, accum=)`` both take.
+    ``data`` is the dense array, or the ``(diag, off)`` pair of a
+    block-tridiagonal factor. bf16 data comes back widened to fp32
+    (exact); the precision entry is a ``(storage, accum)`` pair of dtype
+    names, which ``factor_from_numpy`` and the JAX package's
+    ``Precision(storage=, accum=)`` both take.
     """
-    data = factor.data.detach()
-    if data.dtype == torch.bfloat16:
-        data = data.float()
+    if isinstance(factor.data, BlockTriDiagStorage):
+        data = storage_to_numpy(factor.data)
+    else:
+        data = factor.data.detach()
+        data = (data.float() if data.dtype == torch.bfloat16
+                else data).cpu().numpy()
     p = factor.precision
     prec = None if p is None else (
         None if p.storage is None else str(p.storage).replace("torch.", ""),
         str(p.accum).replace("torch.", ""))
     meta = dict(panel=factor.panel, backend=factor.backend, precision=prec,
                 lowering=factor.lowering)
-    return data.cpu().numpy(), meta
+    return data, meta

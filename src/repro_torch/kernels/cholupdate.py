@@ -1,19 +1,43 @@
-"""Value-level kernel math of the rank-k panel update, in plain torch.
+"""Rank-k panel kernels of the paper's multi-kernel cascade, PyTorch port.
 
-Port of the value-level half of ``repro.kernels.cholupdate``:
-``diag_recurrence`` (the serial hyperbolic recurrence on one diagonal
-block, emitting the transform ``T``) and ``apply_rotations`` (the paper's
-element-wise rotation chain over a panel tile). They are the plain versions
-the CUDA fused-chain kernel (``csrc/chol_tile.cuh``) is held against. Both
-take any leading batch axes, which is how a ``(B, n, n)`` fleet runs.
+Port of ``repro.kernels.cholupdate``. Two layers:
 
-The three per-panel ``pallas_call`` wrappers of that module (``diag_block``,
-``panel_apply_gemm``, ``panel_apply_paper``) are not on the port's path yet
-(ROADMAP queue 2).
+* the value-level kernel math in plain torch, ``diag_recurrence`` (the
+  serial hyperbolic recurrence on one diagonal block, emitting the
+  transform ``T``) and ``apply_rotations`` (the paper's element-wise
+  rotation chain over a panel tile), which every kernel of the port is
+  held against;
+* the three per-panel kernels, each a wrapper that launches its CUDA
+  kernel (``csrc/panel_kernels.cu``) on CUDA tensors and runs its plain
+  version on CPU tensors: ``diag_block`` (replaces ``diag_block``,
+  ``cholupdate.py:282``), ``panel_apply_gemm`` (``:224``) and
+  ``panel_apply_paper`` (``:149``). Each takes an optional leading batch
+  axis: a (B, ...) fleet is one launch. The in-place forms
+  ``diag_block_`` / ``panel_apply_gemm_`` / ``panel_apply_paper_`` take
+  views of a padded factor through their strides, so the cascade
+  (``kernels/ops.py``) copies nothing; the functional forms sit on them.
+
+On a CUDA tensor a wrapper launches its kernel or raises; ``LAUNCHES``
+counts the launches of each kernel. The kernels take a block of at most
+256 rows and at most 32 rotations a row (``_launch``); the cascade keeps
+within both.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Dict
+
 import torch
+
+from repro_torch.kernels._launch import (MAX_K, MAX_PANEL, LaunchCounter,
+                                         accum_for, check_rc, column_tile,
+                                         dtype_code)
+from repro_torch.obs import metrics as _obs_metrics
+
+#: Launches of each per-panel CUDA kernel, by kernel name.
+LAUNCHES: Dict[str, LaunchCounter] = {
+    name: LaunchCounter()
+    for name in ("diag_block", "panel_apply_gemm", "panel_apply_paper")}
 
 
 def diag_recurrence(D, vtd, *, sigma: int, rows: int, k: int,
@@ -77,3 +101,266 @@ def apply_rotations(R, vt, c, s, *, sigma: int, rows: int, k: int,
             vt[..., m, :] = c_im * v_m - s_im * t
         R[..., i, :] = t
     return R, vt
+
+
+# ---------------------------------------------------------------------------
+# The per-panel kernels: CUDA on CUDA tensors, the plain version on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("panel_kernels")
+    if not getattr(lib, "_repro_typed", False):
+        ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.repro_diag_block.argtypes = (
+            [ptr, ll, i, ptr, ll, i, ptr, ptr, ptr] + [i] * 6 + [ptr])
+        lib.repro_diag_block.restype = i
+        lib.repro_panel_apply.argtypes = (
+            [ptr, ll, i, ptr, ll, i, ptr, i, ptr, ptr, ll] + [i] * 8 + [ptr])
+        lib.repro_panel_apply.restype = i
+        lib.repro_panel_t_pitch.argtypes = [i, i]
+        lib.repro_panel_t_pitch.restype = i
+        lib.repro_cuda_error_string.argtypes = [i]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib._repro_typed = True
+    return lib
+
+
+def _count(name: str, panel: int) -> None:
+    LAUNCHES[name].count += 1
+    _obs_metrics.counter("repro.kernels.launches", module="cholupdate",
+                         kernel=name, panel=panel).inc()
+
+
+def _member_stride(x) -> int:
+    """Elements between fleet members of a (B, r, c) or (r, c) view."""
+    return x.stride(0) if x.ndim == 3 else 0
+
+
+def _ld(x) -> int:
+    """Elements between rows of a view (its leading dimension). The stride
+    of a single row means nothing (torch may report any value for it), so
+    it is the row's length."""
+    return x.stride(-2) if x.shape[-2] > 1 else x.shape[-1]
+
+
+def _check_views(what, views, dtype, device):
+    """Each view is (r, c) or (B, r, c) with unit column stride, on one
+    CUDA device and in the storage dtype."""
+    for name, x in views.items():
+        if not x.is_cuda or x.device != device:
+            raise ValueError(f"{what} takes CUDA tensors on one device, got "
+                             f"{name} on {x.device}")
+        if x.dtype != dtype:
+            raise ValueError(f"{what}: {name} dtype {x.dtype} differs from "
+                             f"{dtype}")
+        if x.ndim not in (2, 3) or (x.shape[-1] > 1 and x.stride(-1) != 1):
+            raise ValueError(f"{what} takes (r, c) or (B, r, c) views with "
+                             f"unit column stride, got {name} of shape "
+                             f"{tuple(x.shape)}, strides {x.stride()}")
+
+
+def _limits(what, P, k):
+    if not (1 <= P <= MAX_PANEL and 1 <= k <= MAX_K):
+        raise ValueError(
+            f"{what} takes a block of P <= {MAX_PANEL} rows and 1 <= k <= "
+            f"{MAX_K} rotations (the cascade splits wider work), got P={P}, "
+            f"k={k}")
+
+
+def _diag_block_cuda(D, vtd, sigma, accum_dtype, zero_slab):
+    """Launch the diagonal kernel on views D (..., P, P), vtd (..., k, P):
+    D in place (and vtd zeroed with ``zero_slab``); returns (c, s, T)."""
+    P, k = D.shape[-1], vtd.shape[-2]
+    _limits("diag_block", P, k)
+    if sigma not in (1, -1):
+        raise ValueError(f"sigma must be +1 or -1, got {sigma}")
+    _check_views("diag_block", {"D": D, "vtd": vtd}, D.dtype, D.device)
+    lead = D.shape[:-2]
+    if D.shape[-2] != P or vtd.shape[-1] != P or vtd.shape[:-2] != lead:
+        raise ValueError(f"shape mismatch: D {tuple(D.shape)}, vtd "
+                         f"{tuple(vtd.shape)}")
+    acc = accum_for(D.dtype, accum_dtype)
+    code = dtype_code(D.dtype, acc)
+    lib = _lib()
+    tp = lib.repro_panel_t_pitch(P, k)
+    c = torch.empty(lead + (P, k), dtype=acc, device=D.device)
+    s = torch.empty_like(c)
+    T = torch.empty(lead + (P + k, tp), dtype=acc, device=D.device)
+    B = D.shape[0] if D.ndim == 3 else 1
+    with torch.cuda.device(D.device):
+        rc = lib.repro_diag_block(
+            D.data_ptr(), _member_stride(D), _ld(D), vtd.data_ptr(),
+            _member_stride(vtd), _ld(vtd), T.data_ptr(), c.data_ptr(),
+            s.data_ptr(), B, P, k, sigma, int(zero_slab), code,
+            torch.cuda.current_stream(D.device).cuda_stream)
+    check_rc(rc, lib, "diag_block")
+    _count("diag_block", P)
+    return c, s, T[..., :P + k]
+
+
+def _diag_block_plain(D, vtd, sigma, accum_dtype):
+    P, k = D.shape[-1], vtd.shape[-2]
+    D_new, c, s, T = diag_recurrence(D, vtd, sigma=sigma, rows=P, k=k,
+                                     accum_dtype=accum_dtype)
+    state = accum_dtype or D.dtype
+    return D_new.to(D.dtype), c.to(state), s.to(state), T.to(state)
+
+
+def diag_block(D, vtd, *, sigma: int, accum_dtype=None):
+    """The diagonal pass of one block (or a fleet of blocks).
+
+    ``D``: (..., P, P) upper triangular; ``vtd``: (..., k, P), its V^T
+    slab. Returns ``(D_new, c, s, T)`` as the JAX kernel does: ``D_new`` in
+    ``D``'s dtype, ``c``, ``s`` (..., P, k) and ``T`` (..., P+k, P+k) in
+    the accum dtype (``accum_dtype``, else ``D``'s), with
+    ``[R_new; vt_new] = T @ [R; vt]``. One launch on CUDA.
+    """
+    if D.is_cuda:
+        D_new = D.clone(memory_format=torch.contiguous_format)
+        c, s, T = _diag_block_cuda(D_new, vtd.to(D.dtype).contiguous(),
+                                   sigma, accum_dtype, False)
+        return D_new.triu_(), c, s, T
+    return _diag_block_plain(D, vtd, sigma, accum_dtype)
+
+
+def diag_block_(D, vtd, *, sigma: int, accum_dtype=None):
+    """``diag_block`` in place on views of a padded factor: ``D`` takes
+    ``D_new`` and ``vtd`` is annihilated (zero), as the recurrence leaves
+    it. Returns ``(c, s, T)``."""
+    if D.is_cuda:
+        return _diag_block_cuda(D, vtd, sigma, accum_dtype, True)
+    D_new, c, s, T = _diag_block_plain(D, vtd, sigma, accum_dtype)
+    D.copy_(D_new)
+    vtd.zero_()
+    return c, s, T
+
+
+def _apply_cuda(R, vt, T, c, s, sigma, block_w, accum_dtype, paper):
+    """Launch a panel apply on views R (..., P, w), vt (..., k, w), in
+    place."""
+    P, w, k = R.shape[-2], R.shape[-1], vt.shape[-2]
+    what = "panel_apply_paper" if paper else "panel_apply_gemm"
+    _limits(what, P, k)
+    if sigma not in (1, -1):
+        raise ValueError(f"sigma must be +1 or -1, got {sigma}")
+    _check_views(what, {"R": R, "vt": vt}, R.dtype, R.device)
+    lead = R.shape[:-2]
+    if vt.shape[-1] != w or vt.shape[:-2] != lead:
+        raise ValueError(f"shape mismatch: R {tuple(R.shape)}, vt "
+                         f"{tuple(vt.shape)}")
+    acc = accum_for(R.dtype, accum_dtype)
+    code = dtype_code(R.dtype, acc)
+    lib = _lib()
+    B = R.shape[0] if R.ndim == 3 else 1
+    if paper:
+        if c.shape != lead + (P, k) or s.shape != c.shape:
+            raise ValueError(f"c, s must be {lead + (P, k)}, got "
+                             f"{tuple(c.shape)}, {tuple(s.shape)}")
+        c = c.to(device=R.device, dtype=acc).contiguous()
+        s = s.to(device=R.device, dtype=acc).contiguous()
+        T_ptr, ldt, st_bs = None, 0, (P * k if R.ndim == 3 else 0)
+    else:
+        if T.shape != lead + (P + k, P + k):
+            raise ValueError(f"T must be {lead + (P + k, P + k)}, got "
+                             f"{tuple(T.shape)}")
+        # The kernel reads T through its row pitch: diag_block's padded T
+        # passes as it is.
+        T = T.to(device=R.device, dtype=acc)
+        if T.stride(-1) != 1:
+            T = T.contiguous()
+        T_ptr, ldt, st_bs = T.data_ptr(), _ld(T), _member_stride(T)
+    cw = column_tile(B, w, block_w, torch.cuda.get_device_properties(
+        R.device).multi_processor_count)
+    with torch.cuda.device(R.device):
+        rc = lib.repro_panel_apply(
+            R.data_ptr(), _member_stride(R), _ld(R), vt.data_ptr(),
+            _member_stride(vt), _ld(vt), T_ptr, ldt,
+            c.data_ptr() if paper else None, s.data_ptr() if paper else None,
+            st_bs, B, w, cw, P, k, sigma, int(paper), code,
+            torch.cuda.current_stream(R.device).cuda_stream)
+    check_rc(rc, lib, what)
+    _count(what, P)
+
+
+def _gemm_plain(R, vt, T, accum_dtype):
+    acc = accum_dtype or torch.promote_types(
+        torch.promote_types(R.dtype, T.dtype), torch.float32)
+    S = T.to(acc) @ torch.cat([R, vt], dim=-2).to(acc)
+    P = R.shape[-2]
+    return S[..., :P, :].to(R.dtype), S[..., P:, :].to(vt.dtype)
+
+
+def _paper_plain(R, vt, c, s, sigma, accum_dtype):
+    acc = accum_dtype or torch.promote_types(R.dtype, c.dtype)
+    R_new, vt_new = apply_rotations(R, vt, c, s, sigma=sigma,
+                                    rows=R.shape[-2], k=vt.shape[-2],
+                                    accum_dtype=acc)
+    return R_new.to(R.dtype), vt_new.to(vt.dtype)
+
+
+def _check_block_w(block_w):
+    if block_w < 1:
+        raise ValueError(f"block_w must be >= 1, got {block_w}")
+
+
+def panel_apply_gemm(R, vt, T, *, block_w: int = 512, accum_dtype=None):
+    """``[R; vt] <- T @ [R; vt]``: the off-diagonal panel apply as one
+    transform GEMM, accumulated in ``accum_dtype`` (else at least fp32).
+
+    ``R``: (..., P, w); ``vt``: (..., k, w); ``T``: (..., P+k, P+k) as
+    ``diag_block`` emits it (its top-left P x P block lower triangular).
+    Returns ``(R_new, vt_new)`` in the inputs' dtypes. ``block_w`` caps the
+    CUDA kernel's column tile (the JAX kernel's grid block); the result
+    does not depend on it. One launch on CUDA.
+    """
+    _check_block_w(block_w)
+    if R.is_cuda:
+        R_new = R.clone(memory_format=torch.contiguous_format)
+        vt_new = vt.clone(memory_format=torch.contiguous_format)
+        _apply_cuda(R_new, vt_new, T, None, None, 1, block_w, accum_dtype,
+                    False)
+        return R_new, vt_new
+    return _gemm_plain(R, vt, T, accum_dtype)
+
+
+def panel_apply_paper(R, vt, c, s, *, sigma: int, block_w: int = 512,
+                      accum_dtype=None):
+    """The paper's element-wise panel apply: per row the k rotations
+    ``(c, s)`` chain over the columns of ``R`` (..., P, w) and ``vt``
+    (..., k, w). Zero columns are fixed points. Returns ``(R_new,
+    vt_new)`` in the inputs' dtypes; the chain runs in ``accum_dtype``
+    (else the wider of ``R``'s and ``c``'s). One launch on CUDA."""
+    _check_block_w(block_w)
+    if R.is_cuda:
+        R_new = R.clone(memory_format=torch.contiguous_format)
+        vt_new = vt.clone(memory_format=torch.contiguous_format)
+        _apply_cuda(R_new, vt_new, None, c, s, sigma, block_w, accum_dtype,
+                    True)
+        return R_new, vt_new
+    return _paper_plain(R, vt, c, s, sigma, accum_dtype)
+
+
+def panel_apply_gemm_(R, vt, T, *, block_w: int = 512, accum_dtype=None):
+    """``panel_apply_gemm`` in place on views of a padded factor."""
+    _check_block_w(block_w)
+    if R.is_cuda:
+        _apply_cuda(R, vt, T, None, None, 1, block_w, accum_dtype, False)
+        return
+    R_new, vt_new = _gemm_plain(R, vt, T, accum_dtype)
+    R.copy_(R_new)
+    vt.copy_(vt_new)
+
+
+def panel_apply_paper_(R, vt, c, s, *, sigma: int, block_w: int = 512,
+                       accum_dtype=None):
+    """``panel_apply_paper`` in place on views of a padded factor."""
+    _check_block_w(block_w)
+    if R.is_cuda:
+        _apply_cuda(R, vt, None, c, s, sigma, block_w, accum_dtype, True)
+        return
+    R_new, vt_new = _paper_plain(R, vt, c, s, sigma, accum_dtype)
+    R.copy_(R_new)
+    vt.copy_(vt_new)

@@ -106,7 +106,7 @@ fused_chain_kernel(S* L, const S* vt, A* tscr, A* cscr, A* sscr, S* slabscr,
                                 work, P, k, sigma);
     } else {
       gemm_apply_tile<S, A>(R, n_pad, slab + g * W, P, W,
-                            tscr + tile * pk * tp, work,
+                            tscr + tile * pk * tp, tp, work,
                             work + kTRows * kChunkW, P, k);
     }
   }

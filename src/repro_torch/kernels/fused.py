@@ -16,7 +16,11 @@ whole cascade as ONE kernel launch:
   CPU path runs it, and the kernel is held against it on the card.
 
 ``fused_chain`` picks by the tensor's device: plain on the CPU, the kernel
-on CUDA — never the plain version for a CUDA tensor.
+on CUDA — never the plain version for a CUDA tensor. On CUDA it keeps the
+kernel inside its limits without changing the function: a rank above 32
+goes in successive column groups of at most 32 (one launch each), and a
+panel above 256 runs at its largest divisor of at most 256
+(``_launch.rank_groups``, ``_launch.kernel_panel``).
 """
 from __future__ import annotations
 
@@ -26,30 +30,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core.precision import Precision, as_dtype
+from repro_torch.kernels._launch import (MAX_K, MAX_PANEL, LaunchCounter,
+                                         accum_for, check_rc, dtype_code,
+                                         kernel_panel, rank_groups)
 from repro_torch.kernels.cholupdate import apply_rotations, diag_recurrence
 from repro_torch.obs import metrics as _obs_metrics
 
 GRID_MODES = ("indexed", "rect")
 PANEL_APPLIES = ("gemm", "paper")
-#: What the CUDA kernel takes (csrc/chol_tile.cuh kMaxPanel / kMaxK).
-MAX_PANEL = 256
-MAX_K = 32
-#: (storage, accum) pairs the CUDA kernel is instantiated for -> dtype code.
-_KERNEL_DTYPES = {
-    (torch.float32, torch.float32): 0,
-    (torch.bfloat16, torch.float32): 1,
-    (torch.float64, torch.float64): 2,
-}
-
-
-class LaunchCounter:
-    """Plain integer count of real kernel launches (one per launch)."""
-
-    def __init__(self):
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
 
 
 #: Launches of the CUDA fused-chain kernel made by ``fused_chain_cuda``.
@@ -80,10 +68,6 @@ def column_groups(batch: int, n_tiles: int, panel: int, sms: int) -> int:
     return groups
 
 
-def _accum_for(storage: torch.dtype, accum_dtype) -> torch.dtype:
-    return accum_dtype or torch.promote_types(storage, torch.float32)
-
-
 def fused_chain_plain(L_pad, vt, *, sigma: int, panel: int,
                       panel_apply: str = "gemm", accum_dtype=None):
     """Plain-torch chain walk over a panel-padded fleet.
@@ -98,7 +82,7 @@ def fused_chain_plain(L_pad, vt, *, sigma: int, panel: int,
     out = L_pad.clone()
     vt = vt.clone()
     state = accum_dtype or L_pad.dtype
-    acc = _accum_for(L_pad.dtype, accum_dtype)
+    acc = accum_for(L_pad.dtype, accum_dtype)
     T = c = s = None
     for p, t in _chain_steps(n_pad // panel):
         rs = slice(p * panel, (p + 1) * panel)
@@ -173,17 +157,14 @@ def fused_chain_cuda(L_pad, vt, *, sigma: int, panel: int,
     if panel_apply not in PANEL_APPLIES:
         raise ValueError(f"panel_apply must be one of {PANEL_APPLIES}, "
                          f"got {panel_apply!r}")
-    acc = _accum_for(L_pad.dtype, accum_dtype)
-    code = _KERNEL_DTYPES.get((L_pad.dtype, acc))
-    if code is None:
-        raise ValueError(
-            f"the CUDA kernel takes storage/accum {list(_KERNEL_DTYPES)}, "
-            f"got {L_pad.dtype}/{acc}")
+    acc = accum_for(L_pad.dtype, accum_dtype)
+    code = dtype_code(L_pad.dtype, acc)
     if not (1 <= panel <= MAX_PANEL and 1 <= k <= MAX_K
             and n_pad % panel == 0):
         raise ValueError(
-            f"the CUDA kernel takes panel <= {MAX_PANEL} dividing n_pad and "
-            f"1 <= k <= {MAX_K} (ROADMAP §3), got panel={panel}, k={k}, "
+            f"one launch takes panel <= {MAX_PANEL} dividing n_pad and "
+            f"1 <= k <= {MAX_K} (fused_chain splits wider work), got "
+            f"panel={panel}, k={k}, "
             f"n_pad={n_pad}")
     groups = _groups
     if groups is not None and not (
@@ -221,12 +202,11 @@ def fused_chain_cuda(L_pad, vt, *, sigma: int, panel: int,
             ptr(slabscr), flags.data_ptr(), B, n_pad, panel, k, groups,
             sigma, int(panel_apply == "paper"), code,
             torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("fused_chain kernel launch failed: "
-                           + lib.repro_cuda_error_string(rc).decode())
+    check_rc(rc, lib, "fused_chain")
     LAUNCHES.count += 1
     _obs_metrics.counter("repro.kernels.launches", module="fused",
-                         lowering="portable").inc()
+                         kernel="fused_chain", lowering="portable",
+                         panel=panel).inc()
     return out
 
 
@@ -235,16 +215,27 @@ def fused_chain(L_pad, vt, *, sigma: int, panel: int,
                 interpret: bool = False):
     """The chain walk on the tensors' device: plain on the CPU, the kernel
     on CUDA. ``interpret=True`` on a CUDA tensor raises instead of quietly
-    running the plain version."""
+    running the plain version.
+
+    On CUDA the kernel runs at ``kernel_panel(panel)`` (which divides the
+    padded length) and takes V^T in ``rank_groups(k)``: ceil(k / 32)
+    launches, one for k <= 32. The plain version walks the whole rank at
+    ``panel`` in one pass: the same function.
+    """
     if L_pad.is_cuda:
         if interpret:
             raise ValueError(
                 "interpret=True asks for the plain version, which runs only "
                 "on CPU tensors; move the factor to the CPU or drop "
                 "interpret")
-        return fused_chain_cuda(L_pad, vt, sigma=sigma, panel=panel,
-                                panel_apply=panel_apply,
-                                accum_dtype=accum_dtype)
+        groups = rank_groups(vt.shape[-2])
+        out = L_pad
+        for g in groups:
+            out = fused_chain_cuda(
+                out, vt if len(groups) == 1 else vt[:, g].contiguous(),
+                sigma=sigma, panel=kernel_panel(panel),
+                panel_apply=panel_apply, accum_dtype=accum_dtype)
+        return out
     return fused_chain_plain(L_pad, vt, sigma=sigma, panel=panel,
                              panel_apply=panel_apply, accum_dtype=accum_dtype)
 
@@ -313,21 +304,31 @@ def chol_update_fused(
     return out[0] if single else out
 
 
-def launch_count(n: int, panel: int, *, method: str) -> int:
+def launch_count(n: int, panel: int, *, method: str,
+                 k: Optional[int] = None) -> int:
     """Device-kernel launches issued per up/down-date, by method.
 
     ``fused`` — 1, always. ``pallas``/``pallas_gemm`` — one panel-apply
     launch per panel with a trailing block (``n_panels - 1``).
     ``pallas_2phase`` — the paper's own accounting: a diagonal and a panel
-    kernel per panel.
+    kernel per panel; the port's per-panel route on CUDA launches exactly
+    this (its diagonal pass is a kernel too).
+
+    With ``k`` given, the count of the port's CUDA routes: ceil(k / 32)
+    column groups, and the panels of ``kernel_panel(panel)`` in the length
+    padded to ``panel``. Without it, the JAX package's count.
     """
     n_panels = -(-n // panel)
+    groups = 1
+    if k is not None:
+        groups = len(rank_groups(k))
+        n_panels *= panel // kernel_panel(panel)
     if method == "fused":
-        return 1
+        return groups
     if method in ("pallas", "pallas_gemm"):
-        return n_panels - 1
+        return groups * (n_panels - 1)
     if method == "pallas_2phase":
-        return n_panels + (n_panels - 1)
+        return groups * (n_panels + (n_panels - 1))
     raise ValueError(f"unknown method {method!r}")
 
 

@@ -269,15 +269,23 @@ def test_solves_logdet_feasibility_match_jax():
 
 
 def test_registered_methods_are_the_ported_ones():
-    assert backends.methods() == ("reference", "paper", "gemm", "fused",
-                                  "auto")
+    assert backends.methods() == ("reference", "paper", "gemm", "pallas",
+                                  "pallas_gemm", "fused", "blocktridiag",
+                                  "blocktridiag_ref", "auto")
+    assert backends.methods("dense") == ("reference", "paper", "gemm",
+                                         "pallas", "pallas_gemm", "fused",
+                                         "auto")
+    # Every JAX method but the sharded driver is registered, with the same
+    # structures.
+    assert set(backends.names()) == set(jbackends.names()) - {"sharded"}
+    for name in backends.names():
+        assert backends.get(name).structures == \
+            jbackends.get(name).structures
     L, V = problem(8, 1)
-    for name in ("pallas", "pallas_gemm", "blocktridiag",
-                 "blocktridiag_ref", "nope"):
-        with pytest.raises(ValueError, match="method must be one of"):
-            backends.resolve(name, n=8)
-        with pytest.raises(ValueError, match="method must be one of"):
-            api.chol_update(t(L), t(V), method=name)
+    with pytest.raises(ValueError, match="method must be one of"):
+        backends.resolve("nope", n=8)
+    with pytest.raises(ValueError, match="method must be one of"):
+        api.chol_update(t(L), t(V), method="nope")
     with pytest.raises(ValueError, match="method must be one of"):
         backends.get("sharded")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
@@ -390,12 +398,17 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_import_leaves_no_jax_or_reference_module():
+    """Every module of the package imports, and none of them pulls in JAX or
+    the JAX package (the package is walked, so a new module is covered)."""
     code = (
-        "import sys\n"
-        # The kernel module first: it and core.backends import each other.
-        "import repro_torch.kernels.fused, repro_torch.kernels._build\n"
-        "import repro_torch, repro_torch.core, repro_torch.interop\n"
-        "import repro_torch.obs\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'repro_torch.kernels.ops', 'repro_torch.core.structure',\n"
+        "        'repro_torch.kernels.blocktridiag'} <= set(names), names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
