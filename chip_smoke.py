@@ -13,7 +13,12 @@ user calls, and holds every kernel against its plain torch version:
   and on a B = 64 fleet;
 * the block-tridiagonal path (``CholFactor.from_blocktridiag`` and the
   block-chain kernel): a Kalman smoother over 8192 timesteps, a wide-block
-  factor and a B = 64 structured fleet.
+  factor and a B = 64 structured fleet;
+* the column-sharded driver (``CholFactor(..., backend='sharded',
+  mesh=)``: a chain phase of diagonal-block kernels, then one panel-phase
+  kernel per shard) on one rank at n = 5120 and on a B = 64 fleet, and on
+  four ranks sharing the card (spawned processes, gloo), whose gathered
+  results are held against the one-rank results.
 
 Builds every kernel from the sources in ``src/repro_torch/kernels/csrc``,
 checks the launches each path takes (counts set to 0 just before a path
@@ -30,9 +35,12 @@ import argparse
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import timedelta
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -169,6 +177,176 @@ def plain_walks_in_background(torch, cases):
     return join
 
 
+#: The four-rank cases of the sharded path: name, strategy, fleet, precision.
+SHARDED_CASES = (("fused", "fused", False, None),
+                 ("gemm", "gemm", False, None),
+                 ("paper", "paper", False, None),
+                 ("fleet fp32", "fused", True, None),
+                 ("fleet bf16", "fused", True, "bf16"))
+
+
+def _rank_kernel_checks(torch, inp, mesh, P=256):
+    """The kernels of the four-rank path against their plain versions on
+    this rank's own shard, at that path's shapes (launches not counted):
+    ``panel_apply_sharded`` on the rank's chain stacks of the n = 5120
+    factor (1280 columns, tile_off 5 · rank) and of the B = 64 fleet (256
+    columns, tile_off rank) in fp32 and bf16, its copied tiles (the
+    diagonal and those left of it) exactly; ``diag_block`` on the gathered
+    block of panel 0 and the gemm and paper applies of that panel on the
+    rank's 1280-column strip. Collective: every rank calls it. Returns
+    [(what, error in units, limit, ok)]."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels import cholupdate as K
+    from repro_torch.kernels import sharded as SH
+
+    parts, me = mesh.size(0), distributed.shard_index(mesh, "model")
+    out = []
+
+    def note(what, err, lim, ok=True):
+        out.append((what, err, lim, bool(ok and err <= lim)))
+
+    for name, L, V, dt in (("n=5120 fp32", inp["L"], inp["V"], torch.float32),
+                           ("fleet fp32", inp["Lf"], inp["Vf"], torch.float32),
+                           ("fleet bf16", inp["Lf"], inp["Vf"],
+                            torch.bfloat16)):
+        w = L.shape[-1] // parts
+        L_loc = L[..., me * w:(me + 1) * w].to(dt).contiguous()
+        vt = V.to(dt).mT[..., me * w:(me + 1) * w].contiguous()
+        acc = torch.float32 if dt == torch.bfloat16 else None
+        T, D, vts = distributed._chain_phase(
+            L_loc, vt, sigma=1, panel=P, w_loc=w, me=me, mesh=mesh, dims=[0],
+            acc=torch.float32)
+        off = me * (w // P)
+        o_k = SH.panel_apply_sharded_cuda(L_loc, T, D, vts, tile_off=off,
+                                          panel=P, accum_dtype=acc)
+        o_p = SH.panel_apply_sharded_plain(L_loc, T, D, vts, tile_off=off,
+                                           panel=P, accum_dtype=acc)
+        rows = torch.arange(L.shape[-1], device=L_loc.device)[:, None] // P
+        cols = torch.arange(w, device=L_loc.device)[None, :] // P
+        copied = rows >= off + cols  # diagonal tile and the zeros left of it
+        exact = torch.equal(torch.where(copied, o_k, 0),
+                            torch.where(copied, o_p, 0))
+        note(f"panel_apply_sharded {name} tile_off {off}",
+             units(torch, o_k, o_p, unit_roundoff(torch, dt)),
+             entry_limit(torch, dt, P),
+             exact and bool(torch.isfinite(o_k).all()))
+        if name != "n=5120 fp32":  # the single factor's strip only
+            continue
+        u32 = unit_roundoff(torch, torch.float32)
+        blk = distributed._gather_diag(L_loc, vt, 0, panel=P, w_loc=w, me=me,
+                                       mesh=mesh, dims=[0])
+        D0, vd0 = blk[:P], blk[P:].contiguous()
+        got = K.diag_block(D0, vd0, sigma=1)
+        ref = K._diag_block_plain(D0, vd0, 1, None)
+        note("diag_block panel 0: D", entry_err(torch, got[0], ref[0], u32),
+             entry_limit(torch, torch.float32, P))
+        for part, x, y in zip(("c", "s", "T"), got[1:], ref[1:]):
+            note(f"diag_block panel 0: {part}", units(torch, x, y, u32),
+                 entry_limit(torch, torch.float32, P))
+        _, c, s, T0 = got
+        R, vr = L_loc[:P], vt
+        for what, x, y in (
+                ("gemm", K.panel_apply_gemm(R, vr, T0),
+                 K._gemm_plain(R, vr, T0, None)),
+                ("paper", K.panel_apply_paper(R, vr, c, s, sigma=1),
+                 K._paper_plain(R, vr, c, s, 1, None))):
+            note(f"panel_apply_{what} panel 0, {w}-column strip",
+                 max(units(torch, a, b, u32) for a, b in zip(x, y)),
+                 entry_limit(torch, torch.float32, P),
+                 all(bool(torch.isfinite(a).all()) for a in x))
+    torch.cuda.synchronize()
+    return out
+
+
+def _sharded_rank(rank, d):
+    """One of four ranks sharing the card (gloo, a ``file://`` store in
+    ``d``): the sharded driver through the entry points on the inputs in
+    ``d``, then its kernels against their plain versions on the rank's own
+    shard (``_rank_kernel_checks``). Rank 0 saves the gathered results;
+    every rank saves the kernel launches each case took on it and its
+    kernel checks. Any error ends the process non-zero."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import api, distributed
+    from repro_torch.kernels import cholupdate as K
+    from repro_torch.kernels import sharded as SH
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store4",
+                            world_size=4, rank=rank,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("model",))
+        inp = torch.load(f"{d}/inputs.pt", map_location="cuda:0")
+        counters = {"panel_apply_sharded": SH.LAUNCHES}
+        counters.update(K.LAUNCHES)
+        out, counts = {}, {}
+        for name, strategy, fleet, prec in SHARDED_CASES:
+            before = {c: x.count for c, x in counters.items()}
+            if fleet:
+                r = api.chol_update_batched(
+                    inp["Lf"], inp["Vf"], method="sharded", mesh=mesh,
+                    panel=256, strategy=strategy, precision=prec)
+            else:
+                r = api.chol_update(inp["L"], inp["V"], method="sharded",
+                                    mesh=mesh, panel=256, strategy=strategy)
+            torch.cuda.synchronize()
+            counts[name] = {c: x.count - before[c]
+                            for c, x in counters.items()
+                            if x.count != before[c]}
+            full = distributed.gather(r)
+            if rank == 0:
+                out[name] = full.cpu()
+            del r, full
+        checks = _rank_kernel_checks(torch, inp, mesh)
+        if rank == 0:
+            torch.save(out, f"{d}/results.pt")
+        with open(f"{d}/counts{rank}.json", "w") as f:
+            json.dump({"counts": counts, "checks": checks}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_four_ranks(torch, inputs, timeout):
+    """Spawn four ranks on the card (``_sharded_rank``), wait for them and
+    stop them. Returns (exit codes, rank 0's gathered results, each rank's
+    launch counts, each rank's kernel checks); all but the codes are None
+    unless all four exited 0."""
+    import multiprocessing
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        torch.save({name: x.cpu() for name, x in inputs.items()},
+                   f"{d}/inputs.pt")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_sharded_rank, args=(r, d))
+                 for r in range(4)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        codes = []
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+            codes.append(p.exitcode)
+        if codes != [0] * 4:
+            return codes, None, None, None
+        saved = []
+        for r in range(4):
+            with open(f"{d}/counts{r}.json") as f:
+                saved.append(json.load(f))
+        return (codes, torch.load(f"{d}/results.pt"),
+                [x["counts"] for x in saved], [x["checks"] for x in saved])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def bound(nbytes, ops, dtype_name):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the peak rate of their type."""
@@ -246,10 +424,15 @@ def main(argv=None) -> int:
     from repro_torch.core import (BlockTriDiagStorage, CholFactor, blocked,
                                   chol_update_batched, chol_update_dense,
                                   modify_error)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed
     from repro_torch.kernels import _build
     from repro_torch.kernels import blocktridiag as BT
     from repro_torch.kernels import cholupdate as K
     from repro_torch.kernels import fused as F
+    from repro_torch.kernels import sharded as SH
 
     # fp32 matmuls (the plain versions' GEMMs, problem set-up) in full
     # fp32: TF32's ~1e-3 would break the fp32 error budget.
@@ -264,7 +447,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.perf_counter()
 
-    counters = {"fused_chain": F.LAUNCHES, "btd_chain": BT.LAUNCHES}
+    counters = {"fused_chain": F.LAUNCHES, "btd_chain": BT.LAUNCHES,
+                "panel_apply_sharded": SH.LAUNCHES}
     counters.update(K.LAUNCHES)
 
     def reset_counts():
@@ -474,6 +658,49 @@ def main(argv=None) -> int:
               f"{str(dt)[6:]:8s} diag {errs[0]:.3f} off {errs[1]:.3f} u "
               f"(limit {lim:g})  {'ok' if ok else 'FAIL'}")
         check(ok, "phase 2d: btd_chain disagrees with its plain version")
+
+    # 2e. the sharded driver's panel kernel. The stacks come from the
+    # port's own chain phase over the whole factor (T and D are the same on
+    # every shard, a shard's running V^T is its columns of the whole one);
+    # the shard is one tile wide, so tile_off is its shard index of four.
+    def chain_stacks(L, V, sigma, P_, acc):
+        return distributed._chain_phase(L, V.mT.contiguous(), sigma=sigma, panel=P_,
+                              w_loc=L.shape[-1], me=0, mesh=None, dims=[],
+                              acc=acc)
+
+    cases = list(itertools.product((None, 3), (64, 256), (1, 16, 32),
+                                   (1, -1), dtypes))
+    print(f"phase 2e: panel_apply_sharded vs plain, {len(cases)} chain "
+          f"phases x tile_off 0, 1, 3")
+    for Bc, Pc, kc, sigma, (dt, acc) in cases:
+        L, V = spd_factor(Bc or 1, 4 * Pc, kc, dt, sigma)
+        if Bc is None:
+            L, V = L[0], V[0]
+        T, Dst, vt = chain_stacks(L, V, sigma, Pc, acc or dt)
+        errs, ok = [], True
+        for tile_off in (0, 1, 3):
+            cols = slice(tile_off * Pc, (tile_off + 1) * Pc)
+            L_loc, vt_loc = L[..., cols].contiguous(), vt[..., cols].contiguous()
+            before = SH.LAUNCHES.count
+            out = SH.panel_apply_sharded(L_loc, T, Dst, vt_loc,
+                                         tile_off=tile_off, panel=Pc,
+                                         accum_dtype=acc)
+            ref = SH.panel_apply_sharded_plain(L_loc, T, Dst, vt_loc,
+                                               tile_off=tile_off, panel=Pc,
+                                               accum_dtype=acc)
+            rows = slice(tile_off * Pc, None)  # the diagonal tile, zeros
+            errs.append(units(torch, out, ref, unit_roundoff(torch, dt)))
+            ok &= (SH.LAUNCHES.count == before + 1
+                   and bool(torch.isfinite(out).all())
+                   and torch.equal(out[..., rows, :], ref[..., rows, :]))
+        lim = entry_limit(torch, dt, Pc)
+        ok &= max(errs) <= lim
+        print(f"  B={Bc or 1}{'' if Bc else ' (unbatched)'} P={Pc} k={kc} "
+              f"sigma={sigma:+d} {str(dt)[6:]:8s} tile_off 0/1/3: "
+              f"{errs[0]:.3f} {errs[1]:.3f} {errs[2]:.3f} u (limit {lim:g})"
+              f"  {'ok' if ok else 'FAIL'}")
+        check(ok, "phase 2e: panel_apply_sharded disagrees with its plain "
+              "version")
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 3 + 4. the main paths: counts from 0 just before each, read after ---
@@ -775,8 +1002,129 @@ def main(argv=None) -> int:
           f"{sbound:.3e}); bf16 vs f64 chain refactorization {e16:.3f} u "
           f"(limit {lim16:g})")
     check(rel_f <= sbound and e16 <= lim16, "structured fleet above limits")
+
+    # 3g. the column-sharded driver on one rank (NCCL where there is one,
+    # else gloo; one rank takes no collective): n = 5120, the paper's 5000
+    # rounded up to whole panels (the driver takes no padding), k = 16, and
+    # the B = 64 fleet in fp32 and bf16.
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    dist.init_process_group("nccl" if dist.is_nccl_available() else "gloo",
+                            init_method=f"file://{store_dir}/store1",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    mesh1 = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+    ns = 5120
+    Bs = torch.from_numpy(rng.uniform(size=(ns, ns)).astype(np.float32)).to(dev)
+    Vs = torch.from_numpy(rng.uniform(size=(ns, k)).astype(np.float32)).to(dev)
+    Ls0 = torch.linalg.cholesky(Bs.mT @ Bs + torch.eye(ns, device=dev)
+                                ).mT.contiguous()
+    del Bs
+    Ls_fused = CholFactor(Ls0, panel=P).update(Vs).data  # before the counts
+    torch.cuda.synchronize()
+    reset_counts()
+    fs0 = CholFactor(Ls0, panel=P, backend="sharded", mesh=mesh1)
+    fs1 = fs0.update(Vs)
+    torch.cuda.synchronize()
+    s_up = {name: v for name, v in read_counts().items() if v}
+    fs2 = fs1.downdate(Vs)
+    torch.cuda.synchronize()
+    sfleet = {}
+    for name, prec in (("fp32", None), ("bf16", "bf16")):
+        before = read_counts()
+        sfleet[name] = chol_update_batched(Lf, Vf, method="sharded",
+                                           mesh=mesh1, panel=P,
+                                           precision=prec)
+        torch.cuda.synchronize()
+        sfleet[name + "_launches"] = {
+            c: v - before[c] for c, v in read_counts().items()
+            if v != before[c]}
+    got = read_counts()
+    add_path(got)
+    want_s = SH.kernel_launches(ns, P, strategy="fused", k=k)
+    want_f = SH.kernel_launches(fb, P, strategy="fused", k=kb)
+    print(f"path sharded, one rank, n={ns} k={k} panel={P} fp32: launches "
+          f"{got}; per update {s_up} (want {want_s}); fleet B={nb} n={fb} "
+          f"fp32 {sfleet['fp32_launches']}, bf16 {sfleet['bf16_launches']} "
+          f"(want {want_f})")
+    check(s_up == want_s and sum(got.values()) == 2 * sum(want_s.values())
+          + 2 * sum(want_f.values()),
+          "sharded: not one panel_apply_sharded launch per shard per sign "
+          "block and n_panels diag_block launches")
+    check(sfleet["fp32_launches"] == want_f
+          and sfleet["bf16_launches"] == want_f,
+          "sharded fleet: not one panel-phase launch for the whole fleet")
+    Ls1, Ls2 = distributed.gather(fs1.data), distributed.gather(fs2.data)
+    L0s, Vsd = Ls0.double(), Vs.double()
+    As_scale = float((L0s.mT @ L0s + Vsd @ Vsd.mT).abs().max())
+    rel_s = float(modify_error(Ls1.double(), L0s, Vsd, sigma=1)) / As_scale
+    trip_s = float((Ls2.double() - L0s).abs().max() / L0s.abs().max())
+    e_sf = entry_err(torch, Ls1, Ls_fused, u32)
+    sbound_n = ns * torch.finfo(torch.float32).eps
+    print(f"  relative modify_error vs f64 {rel_s:.3e}, round trip "
+          f"{trip_s:.3e} (bound n*eps = {sbound_n:.3e}); vs the fused path "
+          f"{e_sf:.3f} u (limit {entry_limit(torch, torch.float32, ns):g})")
+    check(bool(torch.isfinite(Ls1).all() and torch.isfinite(Ls2).all())
+          and bool(fs1.is_valid()) and bool(fs2.is_valid()),
+          "sharded path: non-finite values or an invalid factor")
+    check(rel_s <= sbound_n and trip_s <= sbound_n
+          and e_sf <= entry_limit(torch, torch.float32, ns),
+          "sharded path above its limits")
+    sf32, sf16 = distributed.gather(sfleet["fp32"]), distributed.gather(sfleet["bf16"])
+    e_f = entry_err(torch, sf32, fleet["fp32"], u32)
+    rel_sf = float((modify_error(sf32.double(), Lf_d, Vf_d)
+                    / A_f.abs().amax(dim=(-2, -1))).max())
+    e_16 = entry_err(torch, sf16.double(), bf16_oracle, BF16_EPS)
+    print(f"  fleet fp32 vs the fused fleet {e_f:.3f} u (limit "
+          f"{entry_limit(torch, torch.float32, fb):g}), worst member relative "
+          f"modify_error {rel_sf:.3e} (limit {fb * 2 * u32:.3e}); bf16 vs f64 "
+          f"refactorization {e_16:.3f} u (limit "
+          f"{entry_limit(torch, torch.bfloat16, fb):g})")
+    check(e_f <= entry_limit(torch, torch.float32, fb)
+          and rel_sf <= fb * 2 * u32
+          and e_16 <= entry_limit(torch, torch.bfloat16, fb)
+          and bool(torch.isfinite(sf16).all()),
+          "sharded fleet above its limits")
     print(f"main paths done at {time.perf_counter() - t_start:.1f} s; "
           f"launches {main_launches}")
+
+    # 3h. four ranks sharing the card (spawned, gloo: NCCL takes one rank
+    # per card), against the one-rank results: the n = 5120 factor (1280
+    # columns a rank) by each strategy, the B = 64 fleet (256 columns a
+    # rank, tile_off 0..3) in fp32 and bf16. Correctness only.
+    one = {"fused": Ls1, "fleet fp32": sf32, "fleet bf16": sf16}
+    for strat in ("gemm", "paper"):  # the one-rank references, not counted
+        one[strat] = distributed.gather(chol_update_batched(
+            Ls0[None], Vs[None], method="sharded", mesh=mesh1, panel=P,
+            strategy=strat))[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    codes, res4, counts4, checks4 = run_four_ranks(
+        torch, {"L": Ls0, "V": Vs, "Lf": Lf, "Vf": Vf}, timeout=400)
+    print(f"path sharded, four ranks on the card: exit codes {codes}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(codes == [0] * 4, "a rank of the four-rank run failed")
+    for rank, rank_checks in enumerate(checks4 or ()):
+        for what, err, lim, ok in rank_checks:
+            print(f"  rank {rank}: {what} vs plain {err:.3f} u (limit "
+                  f"{lim:g})  {'ok' if ok else 'FAIL'}")
+            check(ok, f"rank {rank}: {what} disagrees with its plain version")
+    check(checks4 is None or all(len(c) == 9 for c in checks4),
+          "a rank did not check all its kernels")
+    for name, strat, is_fleet, prec in SHARDED_CASES if res4 else ():
+        n_ = fb if is_fleet else ns
+        dt = torch.bfloat16 if prec else torch.float32
+        err = entry_err(torch, res4[name].to(dev), one[name],
+                        unit_roundoff(torch, dt))
+        lim = entry_limit(torch, dt, n_)
+        want = SH.kernel_launches(n_, P, strategy=strat, k=k)
+        ok_c = all(c[name] == want for c in counts4)
+        print(f"  {name:10s} ({strat}) vs one rank {err:.3f} u (limit "
+              f"{lim:g}); launches per rank {[c[name] for c in counts4]} "
+              f"(want {want})  {'ok' if err <= lim and ok_c else 'FAIL'}")
+        check(err <= lim and ok_c and bool(torch.isfinite(res4[name]).all()),
+              f"four ranks disagree with one rank ({name})")
+    del res4
 
     # -- kernel vs plain at the main paths' shapes (not counted) --------------
     # The fused chain: the downdate first, so that Lp, vt are the update's
@@ -913,6 +1261,49 @@ def main(argv=None) -> int:
               f"(limit {lim:g}), plain {p_ms:.1f} ms")
         check(err <= lim, f"btd_chain disagrees with plain ({name} fleet)")
 
+    # The panel kernel on the sharded path's own stacks: the n = 5120 factor
+    # on one rank (tile_off 0, 20 x 20 tiles) and the B = 64 fleet.
+    vt_s = Vs.mT.contiguous()
+
+    def stacks_s():
+        return distributed._chain_phase(Ls0, vt_s, sigma=1, panel=P, w_loc=ns, me=0,
+                              mesh=mesh1, dims=[0], acc=torch.float32)
+
+    Ts, Dss, vts = stacks_s()
+    out_k = SH.panel_apply_sharded_cuda(Ls0, Ts, Dss, vts, tile_off=0,
+                                        panel=P)
+    psh_ms, out_p = timed(torch, lambda: SH.panel_apply_sharded_plain(
+        Ls0, Ts, Dss, vts, tile_off=0, panel=P), reps=1, warmup=0)
+    err = units(torch, out_k, out_p, u32)
+    max_err["panel_apply_sharded"] = float((out_k - out_p).abs().max())
+    print(f"panel_apply_sharded vs plain at n={ns} (units): {err:.3f} (limit "
+          f"{entry_limit(torch, torch.float32, P):g}), max abs "
+          f"{max_err['panel_apply_sharded']:.3e}")
+    check(err <= entry_limit(torch, torch.float32, P),
+          "panel_apply_sharded disagrees with plain at n=5120")
+    del out_k, out_p
+    for name, dt, acc in (("fp32", torch.float32, None),
+                          ("bf16", torch.bfloat16, torch.float32)):
+        Lx, vx = Lf.to(dt), Vf.to(dt).mT.contiguous()
+        T_, D_, v_ = distributed._chain_phase(Lx, vx, sigma=1, panel=P, w_loc=fb,
+                                    me=0, mesh=mesh1, dims=[0],
+                                    acc=torch.float32)
+        o_k = SH.panel_apply_sharded_cuda(Lx, T_, D_, v_, tile_off=0,
+                                          panel=P, accum_dtype=acc)
+        o_p = SH.panel_apply_sharded_plain(Lx, T_, D_, v_, tile_off=0,
+                                           panel=P, accum_dtype=acc)
+        err = units(torch, o_k, o_p, unit_roundoff(torch, dt))
+        lim = entry_limit(torch, dt, P)
+        if name == "fp32":
+            max_err["panel_apply_sharded"] = max(
+                max_err["panel_apply_sharded"],
+                float((o_k - o_p).abs().max()))
+        print(f"panel_apply_sharded vs plain, fleet B={nb} n={fb} {name}: "
+              f"{err:.3f} u (limit {lim:g})  {'ok' if err <= lim else 'FAIL'}")
+        check(err <= lim, f"panel_apply_sharded disagrees with plain on the "
+              f"{name} fleet")
+        del Lx, vx, T_, D_, v_, o_k, o_p
+
     # -- 5. timings ------------------------------------------------------------
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     groups = F.column_groups(1, Lp.shape[-1] // P, P, sms)
@@ -943,7 +1334,7 @@ def main(argv=None) -> int:
           f"{ms:.3f} ms (paper apply {paper_ms:.3f} ms), plain "
           f"{plain_ms:.1f} ms, cholesky(A + VV^T) {library_ms:.3f} ms")
     print(f"  bytes_per_update {nbytes} -> {nbytes / ms / 1e6:.1f} GB/s; "
-          f"ops {ops} -> {ops / ms / 1e9:.1f} GFLOP/s; bound {bound_ms:.4f} "
+          f"ops {ops} -> {ops / ms / 1e9:.3f} TFLOP/s; bound {bound_ms:.4f} "
           f"ms by {bound_by}; share of bound {bound_ms / ms:.4f}")
     print(f"  column groups {groups} ({Lp.shape[-1] // P * groups} blocks on "
           f"{sms} SMs): {ms:.3f} ms; one group per column tile: "
@@ -1060,13 +1451,53 @@ def main(argv=None) -> int:
     for name, t_ms in btd_t.items():
         print(f"timing btd_chain {name}: {t_ms:.3f} ms per update (bound "
               f"{btd_b[name][0]:.4f} ms by {btd_b[name][1]})")
+
+    # The sharded path at n = 5120 on one rank: the update, its chain phase
+    # and its panel kernel apart; the kernel's bound and the same tile
+    # products as one batched library call.
+    fsx = CholFactor(Ls0, panel=P, backend="sharded", mesh=mesh1)
+    sh_ms, _ = timed(torch, lambda: fsx.update(Vs), reps=5, warmup=1)
+    sh_host, _ = host_timed(torch, lambda: fsx.update(Vs), reps=3)
+    chain_ms, _ = timed(torch, stacks_s, reps=3, warmup=1)
+    shk_ms, _ = timed(torch, lambda: SH.panel_apply_sharded_cuda(
+        Ls0, Ts, Dss, vts, tile_off=0, panel=P), reps=10, warmup=2)
+    nt = ns // P
+    upper = [(p_, t_) for p_ in range(nt) for t_ in range(p_ + 1, nt)]
+    Tcat = torch.stack([Ts[p_, :P, :] for p_, _ in upper])
+    Scat = torch.stack([torch.cat([Ls0[p_ * P:(p_ + 1) * P,
+                                       t_ * P:(t_ + 1) * P],
+                                   vts[p_, :, t_ * P:(t_ + 1) * P]])
+                        for p_, t_ in upper])
+    shlib_ms, _ = timed(torch, lambda: torch.bmm(Tcat, Scat), reps=10,
+                        warmup=2)
+    del Tcat, Scat
+    sh_bytes, sh_ops = SH.panel_phase_work(ns, ns, P, k, tile_off=0,
+                                           storage_dtype=torch.float32)
+    b_sh = bound(sh_bytes, sh_ops, "float32")
+    print(f"timing sharded n={ns} k={k} panel={P} fp32, one rank, on {card}: "
+          f"update {sh_ms:.3f} ms on the card ({sh_host:.3f} ms host clock); "
+          f"chain phase {chain_ms:.3f} ms ({nt} diag_block launches and the "
+          f"V^T steps), share {chain_ms / sh_ms:.3f}; panel_apply_sharded "
+          f"{shk_ms:.3f} ms (plain {psh_ms:.1f} ms, torch.bmm of the same "
+          f"{len(upper)} tile products {shlib_ms:.3f} ms, bound "
+          f"{b_sh[0]:.4f} ms by {b_sh[1]}: {sh_bytes} bytes, {sh_ops} ops, "
+          f"{sh_ops / shk_ms / 1e9:.2f} TFLOP/s)")
+    for name, prec in (("fp32", None), ("bf16", "bf16")):
+        def run():
+            return chol_update_batched(Lf, Vf, method="sharded", mesh=mesh1,
+                                       panel=P, precision=prec)
+        d_ms, _ = timed(torch, run, reps=3, warmup=1)
+        print(f"  chol_update_batched B={nb} n={fb} sharded {name}, one rank:"
+              f" {d_ms:.3f} ms on the card")
     print(f"timings done at {time.perf_counter() - t_start:.1f} s")
 
-    # -- 6. reported, not checked ----------------------------------------------
-    # A bf16 downdate through four chained 256-row blocks, the kernel and
-    # its plain version each against the float64 chain refactorization of
-    # the rounded inputs (tests/test_torch_cuda.py holds kernel against
-    # plain here to the bf16 limit; PERF.md has the values).
+    # -- 6. the bf16 block chain, two witnesses ----------------------------------
+    # A bf16 downdate through four chained 256-row blocks: each block's slab
+    # arrives through the bf16-stored result of the block before, so the
+    # kernel and its plain version are each held against the float64 chain
+    # refactorization of the rounded inputs, and the kernel may be no
+    # further from it than the plain version plus 4 units (one flipped
+    # stored rounding on each side), as tests/test_torch_cuda.py does.
     Sb, Vb = banded(1, 4, 256, 16)
     vtb = Vb.mT.contiguous()
     Sb = BlockTriDiagStorage(*BT.btd_chain_plain(Sb.diag, Sb.off, vtb,
@@ -1087,11 +1518,15 @@ def main(argv=None) -> int:
                    units(torch, x[1], y[1], u16))
 
     orc = (oracle.diag, oracle.off)
-    print(f"reported, not checked: bf16 block chain B=1 nb=4 b=256 k=16 "
-          f"downdate: kernel vs plain "
-          f"{chain_units(outs['kernel'], outs['plain']):.3f} u, kernel vs "
-          f"f64 chain {chain_units(outs['kernel'], orc):.3f} u, plain vs f64 "
-          f"chain {chain_units(outs['plain'], orc):.3f} u")
+    e_k, e_p = (chain_units(outs[w], orc) for w in ("kernel", "plain"))
+    ok = e_k <= e_p + 4.0 and all(bool(torch.isfinite(x).all())
+                                  for o in outs.values() for x in o)
+    print(f"bf16 block chain B=1 nb=4 b=256 k=16 downdate: kernel vs plain "
+          f"{chain_units(outs['kernel'], outs['plain']):.3f} u (reported); "
+          f"kernel vs f64 chain {e_k:.3f} u, plain vs f64 chain {e_p:.3f} u "
+          f"(limit: plain's + 4)  {'ok' if ok else 'FAIL'}")
+    check(ok, "bf16 block chain: the kernel is further from the f64 chain "
+          "than its plain version plus 4 units")
 
     kernels = [{
         "name": "fused_chain",
@@ -1127,8 +1562,18 @@ def main(argv=None) -> int:
         "ms": btd_t["fleet fp32"], "plain_ms": btd_plain_ms,
         "bound_ms": btd_b["fleet fp32"][0],
         "bound_by": btd_b["fleet fp32"][1], "library_ms": None})
+    kernels.append({
+        "name": "panel_apply_sharded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sharded_panel.cu",
+        "replaces": "src/repro/kernels/sharded.py:118",
+        "launches": main_launches["panel_apply_sharded"],
+        "max_abs_err": max_err["panel_apply_sharded"],
+        "ms": shk_ms, "plain_ms": psh_ms, "bound_ms": b_sh[0],
+        "bound_by": b_sh[1], "library_ms": shlib_ms})
     for kk in kernels:
         check(kk["launches"] > 0, f"{kk['name']} never launched on its path")
+    dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if FAILED:
         print(f"{len(FAILED)} check(s) failed:", *FAILED, sep="\n  ")

@@ -3,8 +3,10 @@
 Port of ``repro.core.api``. ``chol_update`` is the single entry point;
 ``method`` names a backend from the registry (``repro_torch.core.backends``):
 ``reference``, ``paper``, ``gemm``, ``pallas``, ``pallas_gemm``, ``fused``,
-or ``auto``, which picks ``fused`` for CUDA tensors (and under explicit
-interpret mode) and ``reference``/``gemm`` by size on the CPU.
+``sharded`` (with ``mesh=``, ``axis=``: the column-sharded driver of
+``repro_torch.core.distributed``, which takes a fleet whole), or ``auto``,
+which picks ``fused`` for CUDA tensors (and under explicit interpret mode)
+and ``reference``/``gemm`` by size on the CPU.
 
 Device: a tensor argument keeps its device; anything else (numpy arrays,
 lists) goes to ``device``, which defaults to CUDA. With no CUDA device and
@@ -19,8 +21,8 @@ e.g. ``BlockTriDiagStorage``): ``method`` then resolves against its
 structure ('auto' -> ``blocktridiag`` on CUDA, ``blocktridiag_ref`` on
 the CPU), and a structured fleet goes through ``chol_update_batched``.
 
-Not ported yet: gradients through the update (ROADMAP queue 1 item 4) and
-the sharded driver (item 9) raise ``NotImplementedError``.
+Not ported yet: gradients through the update (ROADMAP queue 1 item 4)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -55,11 +57,7 @@ def as_tensor(x, device=None):
     return torch.as_tensor(x, device=default_device(device))
 
 
-def _check_supported(L, V, method):
-    if method == "sharded":
-        raise NotImplementedError(
-            "method='sharded' is not ported yet (ROADMAP queue 1 item 9); "
-            f"method must be one of {backends.methods()}")
+def _check_supported(L, V):
     if getattr(L, "requires_grad", False) or getattr(V, "requires_grad",
                                                        False):
         raise NotImplementedError(
@@ -68,7 +66,7 @@ def _check_supported(L, V, method):
 
 
 def _check_method_sigma(method, sigma):
-    if method not in backends.methods() and method != "sharded":
+    if method not in backends.methods():
         raise ValueError(
             f"method must be one of {backends.methods()}, got {method!r}")
     if sigma not in (1, -1):
@@ -102,13 +100,14 @@ def chol_update(
         None). The result carries the storage dtype.
       device: where non-tensor inputs go (default CUDA).
       **opts: backend options (``panel_apply=``, ``grid_mode=``,
-        ``lowering=`` for 'fused').
+        ``lowering=`` for 'fused'; ``mesh=``, ``axis=``, ``strategy=``,
+        ``lowering=`` for 'sharded').
 
     Returns:
       The modified upper-triangular factor.
     """
     _check_method_sigma(method, sigma)
-    _check_supported(L, V, method)
+    _check_supported(L, V)
     L = as_tensor(L, device)
     V = as_tensor(V, L.device)
     if _structure.is_factor_storage(L):
@@ -116,7 +115,8 @@ def chol_update(
             raise ValueError(
                 "batched structured storage goes through "
                 f"chol_update_batched (got {L.describe()})")
-    elif L.ndim == 3:
+    elif L.ndim == 3 and method != "sharded":
+        # The sharded driver takes a fleet whole, as in the JAX package.
         raise ValueError(
             f"stacked (B, n, n) factors go through chol_update_batched "
             f"(method={method!r})")
@@ -147,7 +147,8 @@ def chol_update_batched(
     modification in one call. ``method`` resolves once for the batch; on
     ``fused`` and ``blocktridiag`` the whole fleet goes through ONE kernel
     launch per sign block, on ``pallas``/``pallas_gemm`` through the
-    launches of one factor.
+    launches of one factor; ``sharded`` takes the fleet whole (one
+    collective per panel and one panel-phase launch per shard for all B).
 
     Args:
       L: (B, n, n) stacked upper-triangular factors, or batched structured
@@ -160,7 +161,7 @@ def chol_update_batched(
       (B, n, n) stacked updated factors.
     """
     _check_method_sigma(method, sigma)
-    _check_supported(L, V, method)
+    _check_supported(L, V)
     L = as_tensor(L, device)
     V = as_tensor(V, L.device)
     structure = getattr(L, "structure", "dense")

@@ -11,9 +11,10 @@ takes. Dense: the serial oracle ``reference``, the panelled drivers
 ``paper`` and ``gemm``, the per-panel kernel cascade ``pallas`` /
 ``pallas_gemm`` (2 n_panels - 1 launches) and the single-launch ``fused``
 chain. Block-tridiagonal: the block-chain kernel ``blocktridiag`` and its
-plain twin ``blocktridiag_ref``. The kernel backends launch their CUDA
-kernels on CUDA tensors and run their plain versions on CPU tensors. The
-sharded driver is not ported yet (ROADMAP queue 1 item 9).
+plain twin ``blocktridiag_ref``. Across ranks: the column-sharded driver
+``sharded`` (``mesh=`` required; ``resolve('auto')`` never picks it). The
+kernel backends launch their CUDA kernels on CUDA tensors and run their
+plain versions on CPU tensors.
 
 ``resolve('auto')`` keys on the device kind of the factor's tensor: CUDA
 (or any Pallas-capable kind the JAX package knows, or explicit interpret
@@ -84,7 +85,7 @@ class Backend:
 
     name: str
     fn: Callable
-    kind: str  # 'serial' | 'blocked' | 'kernel'
+    kind: str  # 'serial' | 'blocked' | 'kernel' | 'collective'
     description: str
     # Whether ``fn`` takes a fleet itself (one launch per sign block); the
     # others run member by member.
@@ -217,8 +218,8 @@ def dispatch(L, V, *, sigma, method, panel, interpret, precision=None,
                    device=L.device, structure=structure)
     policy = Precision.parse(precision)
     storage_dt = L.dtype if policy is None else policy.storage_for(L.dtype)
-    lowering = (resolve_lowering(opts.get("lowering")) if name == "fused"
-                else "none")
+    lowering = (resolve_lowering(opts.get("lowering"))
+                if name in ("fused", "sharded") else "none")
     labels = dict(backend=name, structure=structure, lowering=lowering,
                   dtype=str(storage_dt).replace("torch.", ""),
                   sign="up" if sigma > 0 else "down")
@@ -340,3 +341,20 @@ def _blocktridiag_ref(L, V, *, sigma, panel, interpret, precision=None,
     return structure.chol_update_blocktridiag_ref(L, V, sigma=sigma,
                                                   precision=precision,
                                                   **opts)
+
+
+@register("sharded", kind="collective", batched=True,
+          description="column-sharded multi-rank driver: a chain phase of "
+                      "diagonal passes, then one panel-phase kernel launch "
+                      "per shard (DESIGN.md §4+§7); requires mesh=")
+def _sharded(L, V, *, sigma, panel, interpret, precision=None, mesh=None,
+             axis="model", **opts):
+    if mesh is None:
+        raise ValueError("method='sharded' requires a mesh= argument")
+    opts.pop("lowering", None)  # one lowering, validated by dispatch
+    from repro_torch.core import distributed
+
+    return distributed.chol_update_sharded(L, V, sigma=sigma, mesh=mesh,
+                                           axis=axis, panel=panel,
+                                           interpret=interpret,
+                                           precision=precision, **opts)

@@ -17,16 +17,22 @@ update on the ``fused`` backend), or a structured storage
 (``repro_torch.core.structure``): ``CholFactor.from_blocktridiag`` keeps
 the O(n·b) factor of a block-tridiagonal matrix. The layout-specific
 operations delegate to the storage.
+
+With ``backend='sharded'`` and a ``mesh`` (a ``DeviceMesh``), the factor's
+columns are sharded over ``axis`` of the mesh (``repro_torch.core
+.distributed``): after the first update ``data`` is a ``DTensor``, and
+every rank of the mesh calls each operation with the same arguments.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import api, backends
+from repro_torch.core import distributed as _distributed
 from repro_torch.core import structure as _structure
 from repro_torch.core.precision import Precision
 from repro_torch.obs import metrics as obs_metrics
@@ -46,6 +52,9 @@ class CholFactor:
       precision: storage/accum dtype policy (``Precision``, a preset string
         like 'bf16', or None = the factor's own dtype).
       lowering: fused lowering, None/'auto'/'portable'.
+      mesh, axis: the ``DeviceMesh`` and the dim name (or tuple of names)
+        the 'sharded' backend shards the columns over (None otherwise),
+        for a factor or a fleet.
     """
 
     data: torch.Tensor
@@ -54,6 +63,8 @@ class CholFactor:
     interpret: Optional[bool] = None
     precision: Optional[Precision] = None
     lowering: Optional[str] = None
+    mesh: Optional[object] = None
+    axis: Union[str, Tuple[str, ...]] = "model"
 
     def __post_init__(self):
         object.__setattr__(self, "precision", Precision.parse(self.precision))
@@ -105,8 +116,10 @@ class CholFactor:
     # -- metadata views -----------------------------------------------------
     @property
     def storage(self) -> "_structure.FactorStorage":
-        """The layout delegate (dense data gets wrapped, no copy)."""
-        return _structure.as_storage(self.data)
+        """The layout delegate (dense data gets wrapped, no copy; the
+        columns of a sharded factor are gathered whole first, a
+        collective)."""
+        return _structure.as_storage(_distributed.gather(self.data))
 
     @property
     def structure(self) -> str:
@@ -115,11 +128,11 @@ class CholFactor:
 
     @property
     def n(self) -> int:
-        return self.storage.n
+        return _structure.as_storage(self.data).n
 
     @property
     def batched(self) -> bool:
-        return self.storage.batched
+        return _structure.as_storage(self.data).batched
 
     @property
     def dtype(self):
@@ -139,7 +152,13 @@ class CholFactor:
             op="update" if sigma > 0 else "downdate",
             structure=self.structure, backend=self.backend).inc()
         opts = {}
-        if self.lowering is not None and self.backend in ("auto", "fused"):
+        if self.backend == "sharded":
+            if self.mesh is None:
+                raise ValueError("sharded backend requires a mesh binding "
+                                 "(CholFactor(..., mesh=, axis=))")
+            opts = {"mesh": self.mesh, "axis": self.axis}
+        if self.lowering is not None and self.backend in ("auto", "fused",
+                                                          "sharded"):
             opts["lowering"] = self.lowering
         V = api.as_tensor(V, self.device)
         fn = api.chol_update_batched if self.batched else api.chol_update
@@ -162,12 +181,24 @@ class CholFactor:
         ``factor'`` is the downdated factor where ``A - V V^T`` stays PD and
         the unchanged factor where it does not (``ok`` says which, per
         fleet member). Both branches are computed.
+
+        On the sharded backend the verdict comes from the downdated
+        factor's diagonal, which leaves the PD cone exactly when ``A - V
+        V^T`` does: each rank checks the diagonal entries of the columns
+        it owns and a MIN all_reduce over the axis makes one verdict, with
+        no gather of the factor.
         """
         obs_metrics.counter("repro.core.guard_calls",
                             structure=self.structure,
                             backend=self.backend).inc()
         V = api.as_tensor(V, self.device)
         down = self.downdate(V)
+        if self.backend == "sharded":
+            ok = _distributed.diag_verdict(down.data, mesh=self.mesh,
+                                           axis=self.axis)
+            new = _distributed.where_sharded(ok, down.data, self.data,
+                                             mesh=self.mesh, axis=self.axis)
+            return dataclasses.replace(self, data=new), ok
         ok = self.downdate_feasible(V)
         if self.structure != "dense":
             # The verdict gates every block: scalar for one factor, (B,)
@@ -193,8 +224,11 @@ class CholFactor:
 
     # -- consumer operations ------------------------------------------------
     # Layout-specific: delegated to the storage (repro_torch.core.structure).
+    # A sharded factor is gathered whole first (``storage``), on every rank,
+    # except for its diagonal (``diagonal``, ``is_valid``, ``logdet``).
     def solve(self, b):
-        """Solve ``A x = b`` against the maintained factor."""
+        """Solve ``A x = b`` against the maintained factor (a sharded
+        factor is gathered whole first)."""
         return self.storage.solve(api.as_tensor(b, self.device))
 
     def solve_triangular(self, b, *, trans: bool):
@@ -203,7 +237,10 @@ class CholFactor:
                                              trans=trans)
 
     def logdet(self):
-        """``log det A`` from the maintained diagonal."""
+        """``log det A`` from the maintained diagonal (of a sharded factor,
+        its diagonal alone is gathered)."""
+        if _distributed.is_sharded(self.data):
+            return 2.0 * torch.sum(torch.log(self.diagonal()), dim=-1)
         return self.storage.logdet()
 
     def downdate_feasible(self, V):
@@ -215,19 +252,28 @@ class CholFactor:
 
     def is_valid(self, *, tol: float = 0.0):
         """Strictly positive diagonal — the factor invariant."""
+        if _distributed.is_sharded(self.data):
+            return torch.all(self.diagonal() > tol, dim=-1)
         return self.storage.is_valid(tol=tol)
 
     def diagonal(self):
-        """The factor's diagonal (sqrt of A's pivots), any layout."""
+        """The factor's diagonal (sqrt of A's pivots), any layout; of a
+        sharded factor each rank reads its own columns' entries and only
+        the diagonal is gathered, O(n)."""
+        if _distributed.is_sharded(self.data):
+            return _distributed.diagonal(self.data,
+                                         mesh=self.data.device_mesh,
+                                         axis=self.axis)
         return self.storage.diagonal()
 
     def matrix(self):
-        """Materialise ``A = L^T L`` (O(n^3) — diagnostics only)."""
+        """Materialise ``A = L^T L`` (O(n^3) — diagnostics only; a sharded
+        factor is gathered whole first)."""
         return self.storage.matrix()
 
     def __repr__(self):
-        return (f"CholFactor({self.storage.describe()} {self.dtype} on "
-                f"{self.device}, panel={self.panel}, "
+        return (f"CholFactor({_structure.as_storage(self.data).describe()} "
+                f"{self.dtype} on {self.device}, panel={self.panel}, "
                 f"backend={self.backend!r})")
 
 

@@ -271,26 +271,28 @@ def test_solves_logdet_feasibility_match_jax():
 def test_registered_methods_are_the_ported_ones():
     assert backends.methods() == ("reference", "paper", "gemm", "pallas",
                                   "pallas_gemm", "fused", "blocktridiag",
-                                  "blocktridiag_ref", "auto")
+                                  "blocktridiag_ref", "sharded", "auto")
     assert backends.methods("dense") == ("reference", "paper", "gemm",
                                          "pallas", "pallas_gemm", "fused",
-                                         "auto")
-    # Every JAX method but the sharded driver is registered, with the same
-    # structures.
-    assert set(backends.names()) == set(jbackends.names()) - {"sharded"}
+                                         "sharded", "auto")
+    # Every JAX method is registered, in the same order, with the same
+    # structures and the same kind of the collective driver.
+    assert backends.names() == jbackends.names()
     for name in backends.names():
         assert backends.get(name).structures == \
             jbackends.get(name).structures
+    assert backends.get("sharded").kind == jbackends.get("sharded").kind
     L, V = problem(8, 1)
     with pytest.raises(ValueError, match="method must be one of"):
         backends.resolve("nope", n=8)
     with pytest.raises(ValueError, match="method must be one of"):
         api.chol_update(t(L), t(V), method="nope")
     with pytest.raises(ValueError, match="method must be one of"):
-        backends.get("sharded")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        backends.get("nope")
+    # The sharded driver needs its mesh, as in the JAX package.
+    with pytest.raises(ValueError, match="requires a mesh"):
         api.chol_update(t(L), t(V), method="sharded")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         api.chol_update_batched(t(L[None]), t(V[None]), method="sharded")
 
 

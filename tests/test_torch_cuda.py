@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the fused chain, the per-panel
-kernels and the block-tridiagonal chain, each against its plain version,
-and the launches each route takes per update.
+kernels, the block-tridiagonal chain and the sharded driver's panel
+kernel, each against its plain version, and the launches each route takes
+per update (the sharded driver on one gloo rank).
 
 Marked ``gpu``; the ``cuda`` fixture skips each test where
 ``torch.cuda.is_available()`` is false (decided inside the fixture, never
@@ -18,11 +19,12 @@ import pytest
 import torch
 
 from repro_torch.core import CholFactor, api, blocked, chol_update_batched
-from repro_torch.core import chol_update_dense
+from repro_torch.core import chol_update_dense, distributed
 from repro_torch.core.structure import BlockTriDiagStorage
 from repro_torch.kernels import blocktridiag as BT
 from repro_torch.kernels import cholupdate as K
 from repro_torch.kernels import fused as F
+from repro_torch.kernels import sharded as SH
 
 pytestmark = pytest.mark.gpu
 
@@ -257,25 +259,64 @@ def test_gemm_apply_reads_t_through_its_pitch(cuda, P, k, dtype):
             assert units(x, y, u_of(dt)) <= entry_limit(dt, P)
 
 
+def chain_units(x, y, unit):
+    """Largest error of a block chain's ``(diag, off)`` against another's,
+    in units of roundoff (``units``; upper triangles of the diag blocks)."""
+    return max(units(torch.triu(x[0]), torch.triu(y[0]), unit),
+               units(x[1], y[1], unit))
+
+
+def chain_oracle(S, V, sigma):
+    """The float64 chain refactorization of the (rounded) inputs: the
+    block factor of A + sigma V V^T, A = S's own matrix."""
+    ad, ao = S.astype(torch.float64).matrix_blocks()
+    b = S.diag.shape[-1]
+    Vb = V.double().reshape(V.shape[:-2] + (V.shape[-2] // b, b,
+                                            V.shape[-1]))
+    vd = Vb @ Vb.mT
+    vo = Vb[..., :-1, :, :] @ Vb[..., 1:, :, :].mT
+    orc = BlockTriDiagStorage.from_matrix_blocks(ad + sigma * vd,
+                                                 ao + sigma * vo)
+    return orc.diag, orc.off
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("sigma", [1, -1])
 @pytest.mark.parametrize("B,nb,b,k", [(1, 64, 4, 16), (3, 16, 16, 5),
                                       (2, 8, 64, 32), (1, 4, 256, 16)])
 def test_blocktridiag_matches_plain(cuda, B, nb, b, k, sigma, dtype):
+    """Kernel against plain: 4 nb b units in fp32/f64. In bf16 a chain of
+    nb > 1 blocks hands each block its slab through the bf16-stored result
+    of the block before, and another summation order need not repeat the
+    plain version's rounding flips there; so the kernel is held to the
+    plain version's own distance from the float64 chain refactorization
+    of the rounded inputs, plus 4 units (one flipped stored rounding on
+    each side), both finite. The 256-row blocks take three more seeds."""
     dt, acc = DTYPES[dtype]
-    S, V = banded(B, nb, b, k, dt, sigma, cuda, seed=nb + b)
-    vt = V.mT.contiguous()
-    before = BT.LAUNCHES.count
-    d_k, o_k = BT.btd_chain_cuda(S.diag, S.off, vt, sigma=sigma,
-                                 accum_dtype=acc)
-    torch.cuda.synchronize()
-    assert BT.LAUNCHES.count == before + 1
-    d_p, o_p = BT.btd_chain_plain(S.diag, S.off, vt, sigma=sigma,
-                                  accum_dtype=acc)
-    lim = 4.0 if dt == torch.bfloat16 else 4.0 * nb * b
-    assert units(torch.triu(d_k), torch.triu(d_p), u_of(dt)) <= lim
-    assert units(o_k, o_p, u_of(dt)) <= lim
-    assert bool(torch.isfinite(d_k).all() and torch.isfinite(o_k).all())
+    two_witness = dt == torch.bfloat16 and nb > 1
+    seeds = [nb + b] + ([1001, 1002, 1003]
+                        if dt == torch.bfloat16 and b == 256 else [])
+    for seed in seeds:
+        S, V = banded(B, nb, b, k, dt, sigma, cuda, seed=seed)
+        vt = V.mT.contiguous()
+        before = BT.LAUNCHES.count
+        d_k, o_k = BT.btd_chain_cuda(S.diag, S.off, vt, sigma=sigma,
+                                     accum_dtype=acc)
+        torch.cuda.synchronize()
+        assert BT.LAUNCHES.count == before + 1
+        d_p, o_p = BT.btd_chain_plain(S.diag, S.off, vt, sigma=sigma,
+                                      accum_dtype=acc)
+        assert bool(torch.isfinite(d_k).all() and torch.isfinite(o_k).all())
+        assert bool(torch.isfinite(d_p).all() and torch.isfinite(o_p).all())
+        if two_witness:
+            orc = chain_oracle(S, V, sigma)
+            e_k = chain_units((d_k, o_k), orc, u_of(dt))
+            e_p = chain_units((d_p, o_p), orc, u_of(dt))
+            assert e_k <= e_p + 4.0, (seed, e_k, e_p)
+        else:
+            lim = 4.0 if dt == torch.bfloat16 else 4.0 * nb * b
+            assert units(torch.triu(d_k), torch.triu(d_p), u_of(dt)) <= lim
+            assert units(o_k, o_p, u_of(dt)) <= lim
 
 
 @pytest.mark.parametrize("method", ["pallas", "pallas_gemm"])
@@ -356,3 +397,153 @@ def test_no_plain_version_on_cuda_for_the_new_routes(cuda):
     with pytest.raises(ValueError, match="k <= 32"):
         BT.btd_chain_cuda(S.diag, S.off, torch.zeros(1, 33, 32,
                                                      device=cuda), sigma=1)
+
+
+# ---------------------------------------------------------------------------
+# the column-sharded driver's panel kernel, one rank on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cuda_mesh(tmp_path_factory):
+    """A one-rank mesh on the card (gloo, a file:// store)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("cuda_mesh") / "store"
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+    finally:
+        dist.destroy_process_group()
+
+
+def chain_stacks(L, V, sigma, P, acc):
+    """The chain phase's stacks of the whole factor (one shard holding
+    every column): T and D are the same on every shard, and a shard's
+    running V^T is its columns of this one."""
+    n = L.shape[-1]
+    vt = V.mT.contiguous()
+    return distributed._chain_phase(
+        L, vt, sigma=sigma, panel=P, w_loc=n, me=0, mesh=None, dims=[],
+        acc=acc or L.dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("sigma", [1, -1])
+@pytest.mark.parametrize("tile_off", [0, 1, 3])
+@pytest.mark.parametrize("B,P,k", [(None, 64, 1), (3, 64, 16),
+                                   (None, 256, 32)])
+def test_sharded_panel_kernel_matches_plain(cuda, B, P, k, tile_off, sigma,
+                                            dtype):
+    """One shard of four, one tile wide: its tile on, above or below the
+    diagonal of each row panel, against the plain version entry by entry
+    (4 P units in fp32/f64, 4 in bf16)."""
+    dt, acc = DTYPES[dtype]
+    n, w = 4 * P, P
+    L, V = spd(B or 1, n, k, dt, sigma, cuda, seed=P + k)
+    if B is None:
+        L, V = L[0], V[0]
+    T, D, vt = chain_stacks(L, V, sigma, P, acc)
+    cols = slice(tile_off * w, (tile_off + 1) * w)
+    L_loc = L[..., cols].contiguous()
+    vt_loc = vt[..., cols].contiguous()
+    before = SH.LAUNCHES.count
+    out = SH.panel_apply_sharded(L_loc, T, D, vt_loc, tile_off=tile_off,
+                                 panel=P, accum_dtype=acc)
+    torch.cuda.synchronize()
+    assert SH.LAUNCHES.count == before + 1
+    ref = SH.panel_apply_sharded_plain(L_loc, T, D, vt_loc,
+                                       tile_off=tile_off, panel=P,
+                                       accum_dtype=acc)
+    assert out.dtype == dt and bool(torch.isfinite(out).all())
+    assert units(out, ref, u_of(dt)) <= (4.0 if dt == torch.bfloat16
+                                         else 4.0 * P)
+    # The diagonal tile is D rounded once; below it zeros, exactly.
+    rows = slice(tile_off * P, (tile_off + 1) * P)
+    assert torch.equal(out[..., rows, :], ref[..., rows, :])
+    assert not bool(out[..., (tile_off + 1) * P:, :].any())
+
+
+@pytest.mark.parametrize("strategy", ["fused", "gemm", "paper"])
+def test_sharded_path_launches_per_shard(cuda, cuda_mesh, strategy):
+    """One rank: per update n_panels diagonal passes and one panel-phase
+    launch (fused) or one panel apply per panel (gemm, paper), for a
+    factor and for a fleet alike; the result agrees with the fused
+    backend's within 4 n units."""
+    n, k, P = 1024, 16, 256
+    L, V = spd(3, n, k, torch.float32, 1, cuda, seed=9)
+    counters = {"panel_apply_sharded": SH.LAUNCHES}
+    counters.update(K.LAUNCHES)
+
+    def counts():
+        return {name: c.count for name, c in counters.items()}
+
+    want = SH.kernel_launches(n, P, strategy=strategy, k=k)
+    for what, run in (
+            ("factor", lambda: api.chol_update(
+                L[0], V[0], method="sharded", mesh=cuda_mesh, panel=P,
+                strategy=strategy)),
+            ("fleet", lambda: chol_update_batched(
+                L, V, method="sharded", mesh=cuda_mesh, panel=P,
+                strategy=strategy))):
+        c0 = counts()
+        out = run()
+        torch.cuda.synchronize()
+        got = {name: v - c0[name] for name, v in counts().items()}
+        assert {name: v for name, v in got.items() if v} == want, what
+        assert distributed.is_sharded(out)
+        ref = chol_update_batched(L, V, method="fused", panel=P)
+        full = distributed.gather(out)
+        assert entry_err(full, ref[0] if what == "factor" else ref) <= \
+            entry_limit(torch.float32, n)
+
+
+def test_sharded_factor_update_downdate_and_wide_rank(cuda, cuda_mesh):
+    """CholFactor(backend='sharded'): k = 48 runs as two passes, each one
+    panel-phase launch. Each of the update and the downdate back is held
+    against the ``pallas_gemm`` route on the same inputs (the same
+    diagonal kernel and transform, another kernel's rounding), entry by
+    entry within 4 n units; and, as a second witness, its distance from
+    the exact answer (the f64 refactorization, and the start for the
+    downdate) may exceed that route's by at most the same 4 n units."""
+    n, k, P = 512, 48, 256
+    L, V = spd(1, n, k, torch.float64, 1, cuda, seed=11)
+    f = CholFactor.from_factor(L[0], panel=P, backend="sharded",
+                               mesh=cuda_mesh)
+    before = SH.LAUNCHES.count
+    up = f.update(V[0])
+    down = up.downdate(V[0])
+    torch.cuda.synchronize()
+    assert SH.LAUNCHES.count - before == 2 * SH.launch_count_sharded(
+        n, P, strategy="fused", k=k) == 4
+    lim = entry_limit(torch.float64, n)
+    up_s = distributed.gather(up.data)
+    down_s = distributed.gather(down.data)
+    up_g = api.chol_update(L[0], V[0], method="pallas_gemm", panel=P)
+    down_g = api.chol_update(up_s, V[0], sigma=-1, method="pallas_gemm",
+                             panel=P)
+    for got, other, exact in ((up_s, up_g, chol_update_dense(L[0], V[0])),
+                              (down_s, down_g, L[0])):
+        assert entry_err(got, other) <= lim
+        assert entry_err(got, exact) <= entry_err(other, exact) + lim
+
+
+def test_no_plain_version_on_cuda_for_the_sharded_route(cuda_mesh):
+    L, V = spd(1, 64, 2, torch.float32, 1, cuda_mesh.device_type)
+    with pytest.raises(ValueError, match="interpret=True"):
+        api.chol_update(L[0], V[0], method="sharded", mesh=cuda_mesh,
+                        panel=32, interpret=True)
+    T, D, vt = chain_stacks(L[0], V[0], 1, 32, None)
+    with pytest.raises(ValueError, match="interpret=True"):
+        SH.panel_apply_sharded(L[0], T, D, vt, tile_off=0, panel=32,
+                               interpret=True)
+    with pytest.raises(ValueError, match="k <= 32"):
+        SH.panel_apply_sharded_cuda(
+            L[0], torch.zeros(2, 65, 65, device="cuda"), D,
+            torch.zeros(2, 33, 64, device="cuda"), tile_off=0, panel=32)

@@ -159,7 +159,8 @@ def test_interop_round_trip_carries_state_and_metadata():
     np.testing.assert_array_equal(data32, L)
     assert meta32["precision"] is None
     with pytest.raises(ValueError, match="not ported"):
-        factor_from_numpy(L, backend="sharded", device="cpu")
+        factor_from_numpy(L, backend="nope", device="cpu")
+    assert meta32["axis"] == "model"
 
 
 def test_fake_gpu_kind_routes_the_factor_to_the_fused_chain(

@@ -318,8 +318,7 @@ def test_accounting_matches_jax():
 
 def test_resolve_by_structure_matches_jax(fake_device_kind):
     assert backends.names("blocktridiag") == jbackends.names("blocktridiag")
-    assert set(backends.names("dense")) == set(jbackends.names("dense")) - {
-        "sharded"}
+    assert backends.names("dense") == jbackends.names("dense")
     for kind in ("cpu", "gpu", "tpu"):
         fake_device_kind(kind)
         for interp in (None, True):
