@@ -44,9 +44,12 @@ from datetime import timedelta
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
+# Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W). The two
+# transform-GEMM kernels run fp32 products as 3xTF32 on the tensor cores,
+# three TF32 MMAs a product: their rate is the TF32 peak over three.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12}
+PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12,
+            "3xtf32": 495e12 / 3}
 BF16_EPS = 2.0 ** -8
 
 # The Kalman smoother of examples/kalman_smoother.py: a 2-D
@@ -1399,8 +1402,9 @@ def main(argv=None) -> int:
     nd = len(panels)
     b_diag = bound(nd * 4 * (2 * P * P + k * P + 2 * P * k + (P + k) ** 2),
                    nd * 6 * P * (P + 1 + k) * k, "float32")
-    b_gemm = bound(sum(4 * (2 * (P + k) * w + (P + k) ** 2) for w in widths),
-                   sum(2 * (P + k) ** 2 * w for w in widths), "float32")
+    b_gemm = bound(*K.panel_apply_gemm_work(P, k, widths,
+                                            storage_dtype=torch.float32),
+                   "3xtf32")
     b_pap = bound(sum(4 * (2 * (P + k) * w + 2 * P * k) for w in widths),
                   sum(6 * P * k * w for w in widths), "float32")
     casc_t = {}
@@ -1473,7 +1477,7 @@ def main(argv=None) -> int:
     del Tcat, Scat
     sh_bytes, sh_ops = SH.panel_phase_work(ns, ns, P, k, tile_off=0,
                                            storage_dtype=torch.float32)
-    b_sh = bound(sh_bytes, sh_ops, "float32")
+    b_sh = bound(sh_bytes, sh_ops, "3xtf32")
     print(f"timing sharded n={ns} k={k} panel={P} fp32, one rank, on {card}: "
           f"update {sh_ms:.3f} ms on the card ({sh_host:.3f} ms host clock); "
           f"chain phase {chain_ms:.3f} ms ({nt} diag_block launches and the "

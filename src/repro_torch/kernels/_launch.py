@@ -11,11 +11,19 @@ function they compute:
   partial downdate of a feasible downdate is feasible);
 * ``kernel_panel``: a panel above 256 runs at its largest divisor of at
   most 256, which divides every length padded to the panel.
+
+The cascade's transform-GEMM apply (``csrc/gemm_tile.cuh``) takes its K
+split over a thread-block cluster and the slices each rank sums from here:
+``gemm_split`` and ``gemm_split_bounds``, priced by the tile's layout
+(``GEMM_BN``, ``GEMM_BK``, ``GEMM_WARP_BLOCKS``), which a test on the card
+holds equal to the kernel's own (``repro_gemm_tile_layout``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -96,3 +104,125 @@ def check_rc(rc: int, lib, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
                            + lib.repro_cuda_error_string(rc).decode())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def on_device(device: torch.device):
+    """The context that makes ``device`` current for a launch: none when it
+    already is (entering ``torch.cuda.device`` costs host time per call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+# ---------------------------------------------------------------------------
+# The transform-GEMM tile (csrc/gemm_tile.cuh)
+# ---------------------------------------------------------------------------
+
+#: Columns of a CTA's strip (all P + k rows); K values a slice.
+GEMM_BN = 64
+GEMM_BK = 16
+#: CTAs of a cluster that split K (1: no cluster).
+GEMM_SPLITS = (1, 2, 4)
+#: The block of 32 rows each warp takes, with the vt rows (block 8) and
+#: panel only: each scheduler (warp % 4) multiplies about as many slices.
+GEMM_WARP_BLOCKS = {"vt": (8, 7, 6, 5, 0, 2, 3, 4, 1),
+                    "panel": (7, 6, 5, 4, 0, 1, 2, 3, 8)}
+
+
+def gemm_slices(P: int, k: int) -> int:
+    """K slices of the product: ceil((P + k) / GEMM_BK)."""
+    return -(-(P + k) // GEMM_BK)
+
+
+def gemm_slice_needed(r0: int, s: int, P: int, rows: int = 16) -> bool:
+    """Whether rows [r0, r0 + rows) multiply K slice ``s``: not when every
+    row lies left of the slice inside ``T_rr``, whose row r is zero right
+    of column r (r < q < P)."""
+    q0 = s * GEMM_BK
+    return not (r0 + rows <= q0 and q0 + GEMM_BK <= P)
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_split(batch: int, w: int, P: int, k: int, capacity) -> int:
+    """CTAs of a cluster that split the K slices of one column strip of
+    the cascade's apply. ``capacity[i]`` is how many clusters of
+    ``GEMM_SPLITS[i]`` CTAs the card holds at once (CTAs for split 1).
+
+    The ``batch * ceil(w / GEMM_BN)`` strips, one cluster each, run in
+    ``ceil(strips / capacity)`` waves. A CTA's time has a large fixed part
+    (staging the first slices, the epilogue, the reduction), so a further
+    wave costs more than a larger split saves: the split takes the fewest
+    waves, then the most CTAs, never more ranks than slices. A split the
+    card cannot place (capacity 0: a shared or partitioned card) is not
+    taken; split 1 must fit. It changes the summation order, not the
+    function."""
+    if capacity[0] < 1:
+        raise ValueError(f"the gemm apply's CTA does not fit the device "
+                         f"(capacity {capacity})")
+    strips = batch * -(-w // GEMM_BN)
+    best = None
+    for split, cap in zip(GEMM_SPLITS, capacity):
+        if cap < 1 or split > gemm_slices(P, k):
+            continue
+        key = (-(-strips // cap), -split)
+        if best is None or key < best[0]:
+            best = (key, split)
+    return best[1]
+
+
+def gemm_slice_cost(s: int, P: int, rows_out: int) -> int:
+    """What K slice ``s`` costs a CTA: the 16-row tiles that multiply it on
+    the busiest of the SM's four schedulers (warp % 4). Every slice ends at
+    a barrier, so that scheduler sets the slice's time."""
+    blocks = GEMM_WARP_BLOCKS["vt" if rows_out > P else "panel"]
+    load = [0, 0, 0, 0]
+    for warp, rb in enumerate(blocks):
+        load[warp % 4] += sum(r0 < rows_out and gemm_slice_needed(r0, s, P)
+                              for r0 in (32 * rb, 32 * rb + 16))
+    return max(load)
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_split_bounds(P: int, k: int, rows_out: int,
+                      split: int) -> Tuple[int, ...]:
+    """The ``split - 1`` inner boundaries of the K slices that the ranks of
+    a cluster sum, ascending: boundary j falls where the running cost
+    (``gemm_slice_cost``) comes closest to j / split of the whole (ties to
+    the earlier slice), every rank keeping at least one slice. The early
+    slices of a lower-triangular T_rr cost the most, so an even count of
+    slices would load rank 0 the most."""
+    n = gemm_slices(P, k)
+    if not 1 <= split <= n:
+        raise ValueError(f"split must be in 1..{n}, got {split}")
+    cum = [0]
+    for s in range(n):
+        cum.append(cum[-1] + gemm_slice_cost(s, P, rows_out))
+    bounds: List[int] = []
+    for j in range(1, split):
+        lo = bounds[-1] + 1 if bounds else 1
+        bounds.append(min(range(lo, n - (split - j) + 1),
+                          key=lambda b: abs(split * cum[b] - j * cum[n])))
+    return tuple(bounds)
+
+
+def gemm_pack_bounds(bounds) -> int:
+    """The boundaries as the kernel takes them: one byte each, the first
+    lowest (``gemm_tile.cuh`` ``rank_slices``)."""
+    return sum(b << (8 * j) for j, b in enumerate(bounds))
+
+
+def upper_tiles(n_panels: int, nt: int, tile_off: int) -> List[int]:
+    """Tiles right of the diagonal in each row panel of a shard of ``nt``
+    tiles whose first global tile is ``tile_off``."""
+    return [max(0, nt - max(0, p - tile_off + 1)) for p in range(n_panels)]

@@ -25,13 +25,16 @@ within both.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
 
 from repro_torch.kernels._launch import (MAX_K, MAX_PANEL, LaunchCounter,
                                          accum_for, check_rc, column_tile,
-                                         dtype_code)
+                                         dtype_code, gemm_pack_bounds,
+                                         gemm_split, gemm_split_bounds,
+                                         on_device, sm_count, GEMM_SPLITS)
 from repro_torch.obs import metrics as _obs_metrics
 
 #: Launches of each per-panel CUDA kernel, by kernel name.
@@ -117,21 +120,46 @@ def _lib():
         lib.repro_diag_block.argtypes = (
             [ptr, ll, i, ptr, ll, i, ptr, ptr, ptr] + [i] * 6 + [ptr])
         lib.repro_diag_block.restype = i
-        lib.repro_panel_apply.argtypes = (
-            [ptr, ll, i, ptr, ll, i, ptr, i, ptr, ptr, ll] + [i] * 8 + [ptr])
-        lib.repro_panel_apply.restype = i
+        lib.repro_panel_gemm.argtypes = (
+            [ptr, ll, i, ptr, ll, i, ptr, ll] + [i] * 6
+            + [ctypes.c_uint, i, ptr])
+        lib.repro_panel_gemm.restype = i
+        lib.repro_panel_paper.argtypes = (
+            [ptr, ll, i, ptr, ll, i, ptr, ptr, ll] + [i] * 7 + [ptr])
+        lib.repro_panel_paper.restype = i
+        lib.repro_panel_gemm_capacity.argtypes = [i, i]
+        lib.repro_panel_gemm_capacity.restype = i
         lib.repro_panel_t_pitch.argtypes = [i, i]
         lib.repro_panel_t_pitch.restype = i
+        lib.repro_gemm_tile_layout.argtypes = [ctypes.POINTER(i)]
+        lib.repro_gemm_tile_layout.restype = None
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _gemm_capacity(device: torch.device, code: int):
+    """Clusters of each split in GEMM_SPLITS (CTAs for split 1) of the gemm
+    apply that the device holds at once, read once per device and dtype
+    (the occupancy calculator: registers, shared memory, cluster
+    placement)."""
+    lib = _lib()
+    out = []
+    with on_device(device):
+        for split in GEMM_SPLITS:
+            n = lib.repro_panel_gemm_capacity(split, code)
+            if n < 0:
+                check_rc(-n, lib, "panel_apply_gemm occupancy")
+            out.append(n)
+    return tuple(out)
+
+
 def _count(name: str, panel: int) -> None:
     LAUNCHES[name].count += 1
-    _obs_metrics.counter("repro.kernels.launches", module="cholupdate",
-                         kernel=name, panel=panel).inc()
+    _obs_metrics.held_counter("repro.kernels.launches", module="cholupdate",
+                              kernel=name, panel=panel).inc()
 
 
 def _member_stride(x) -> int:
@@ -190,7 +218,7 @@ def _diag_block_cuda(D, vtd, sigma, accum_dtype, zero_slab):
     s = torch.empty_like(c)
     T = torch.empty(lead + (P + k, tp), dtype=acc, device=D.device)
     B = D.shape[0] if D.ndim == 3 else 1
-    with torch.cuda.device(D.device):
+    with on_device(D.device):
         rc = lib.repro_diag_block(
             D.data_ptr(), _member_stride(D), _ld(D), vtd.data_ptr(),
             _member_stride(vtd), _ld(vtd), T.data_ptr(), c.data_ptr(),
@@ -240,13 +268,14 @@ def diag_block_(D, vtd, *, sigma: int, accum_dtype=None):
 
 def _apply_cuda(R, vt, T, c, s, sigma, block_w, accum_dtype, paper):
     """Launch a panel apply on views R (..., P, w), vt (..., k, w), in
-    place."""
+    place: the paper's (c, s) or the transform GEMM (T, any row pitch)."""
     P, w, k = R.shape[-2], R.shape[-1], vt.shape[-2]
     what = "panel_apply_paper" if paper else "panel_apply_gemm"
     _limits(what, P, k)
     if sigma not in (1, -1):
         raise ValueError(f"sigma must be +1 or -1, got {sigma}")
-    _check_views(what, {"R": R, "vt": vt}, R.dtype, R.device)
+    dev = R.device
+    _check_views(what, {"R": R, "vt": vt}, R.dtype, dev)
     lead = R.shape[:-2]
     if vt.shape[-1] != w or vt.shape[:-2] != lead:
         raise ValueError(f"shape mismatch: R {tuple(R.shape)}, vt "
@@ -259,28 +288,33 @@ def _apply_cuda(R, vt, T, c, s, sigma, block_w, accum_dtype, paper):
         if c.shape != lead + (P, k) or s.shape != c.shape:
             raise ValueError(f"c, s must be {lead + (P, k)}, got "
                              f"{tuple(c.shape)}, {tuple(s.shape)}")
-        c = c.to(device=R.device, dtype=acc).contiguous()
-        s = s.to(device=R.device, dtype=acc).contiguous()
-        T_ptr, ldt, st_bs = None, 0, (P * k if R.ndim == 3 else 0)
+        c = c.to(device=dev, dtype=acc).contiguous()
+        s = s.to(device=dev, dtype=acc).contiguous()
+        cw = column_tile(B, w, block_w, sm_count(dev))
+        with on_device(dev):
+            rc = lib.repro_panel_paper(
+                R.data_ptr(), _member_stride(R), _ld(R), vt.data_ptr(),
+                _member_stride(vt), _ld(vt), c.data_ptr(), s.data_ptr(),
+                P * k if R.ndim == 3 else 0, B, w, cw, P, k, sigma, code,
+                torch.cuda.current_stream(dev).cuda_stream)
     else:
         if T.shape != lead + (P + k, P + k):
             raise ValueError(f"T must be {lead + (P + k, P + k)}, got "
                              f"{tuple(T.shape)}")
         # The kernel reads T through its row pitch: diag_block's padded T
         # passes as it is.
-        T = T.to(device=R.device, dtype=acc)
+        if T.dtype != acc or T.device != dev:
+            T = T.to(device=dev, dtype=acc)
         if T.stride(-1) != 1:
             T = T.contiguous()
-        T_ptr, ldt, st_bs = T.data_ptr(), _ld(T), _member_stride(T)
-    cw = column_tile(B, w, block_w, torch.cuda.get_device_properties(
-        R.device).multi_processor_count)
-    with torch.cuda.device(R.device):
-        rc = lib.repro_panel_apply(
-            R.data_ptr(), _member_stride(R), _ld(R), vt.data_ptr(),
-            _member_stride(vt), _ld(vt), T_ptr, ldt,
-            c.data_ptr() if paper else None, s.data_ptr() if paper else None,
-            st_bs, B, w, cw, P, k, sigma, int(paper), code,
-            torch.cuda.current_stream(R.device).cuda_stream)
+        split = gemm_split(B, w, P, k, _gemm_capacity(dev, code))
+        bounds = gemm_pack_bounds(gemm_split_bounds(P, k, P + k, split))
+        with on_device(dev):
+            rc = lib.repro_panel_gemm(
+                R.data_ptr(), _member_stride(R), _ld(R), vt.data_ptr(),
+                _member_stride(vt), _ld(vt), T.data_ptr(), _member_stride(T),
+                _ld(T), B, w, P, k, split, bounds, code,
+                torch.cuda.current_stream(dev).cuda_stream)
     check_rc(rc, lib, what)
     _count(what, P)
 
@@ -312,9 +346,10 @@ def panel_apply_gemm(R, vt, T, *, block_w: int = 512, accum_dtype=None):
 
     ``R``: (..., P, w); ``vt``: (..., k, w); ``T``: (..., P+k, P+k) as
     ``diag_block`` emits it (its top-left P x P block lower triangular).
-    Returns ``(R_new, vt_new)`` in the inputs' dtypes. ``block_w`` caps the
-    CUDA kernel's column tile (the JAX kernel's grid block); the result
-    does not depend on it. One launch on CUDA.
+    Returns ``(R_new, vt_new)`` in the inputs' dtypes. ``block_w`` is the
+    JAX kernel's grid block; the CUDA kernel's strips are its own
+    (``_launch.gemm_split``), and the result does not depend on either.
+    One launch on CUDA.
     """
     _check_block_w(block_w)
     if R.is_cuda:
@@ -364,3 +399,21 @@ def panel_apply_paper_(R, vt, c, s, *, sigma: int, block_w: int = 512,
     R_new, vt_new = _paper_plain(R, vt, c, s, sigma, accum_dtype)
     R.copy_(R_new)
     vt.copy_(vt_new)
+
+
+def panel_apply_gemm_work(P: int, k: int, widths, storage_dtype,
+                          accum_dtype=None):
+    """(bytes, operations) the gemm applies over trailing ``widths`` need:
+    each apply reads ``[R; vt]`` and T once and writes ``[R; vt]`` once;
+    its operations are two per nonzero of T a column: the lower-triangular
+    ``T_rr`` (row i mixes rows j <= i), the dense ``T_rv`` and ``T_vr``,
+    and the lower-triangular ``T_vv`` (V row m meets V rows m' < m only
+    through the pivot rows), 2 (P (P+1) / 2 + 2 P k + k (k+1) / 2)."""
+    s = torch.empty((), dtype=storage_dtype).element_size()
+    a = torch.empty((), dtype=accum_for(storage_dtype,
+                                        accum_dtype)).element_size()
+    widths = list(widths)
+    nbytes = sum(2 * (P + k) * w * s + (P + k) ** 2 * a for w in widths)
+    ops = sum(2 * (P * (P + 1) // 2 + 2 * P * k + k * (k + 1) // 2) * w
+              for w in widths)
+    return nbytes, ops

@@ -25,9 +25,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels._launch import (MAX_K, MAX_PANEL, LaunchCounter,
-                                         accum_for, check_rc, column_tile,
-                                         dtype_code, kernel_panel,
-                                         rank_groups)
+                                         accum_for, check_rc, dtype_code,
+                                         kernel_panel, on_device,
+                                         rank_groups, upper_tiles)
 from repro_torch.obs import metrics as _obs_metrics
 
 #: Launches of the CUDA panel-phase kernel made by ``panel_apply_sharded``.
@@ -55,12 +55,6 @@ def _shapes(L_loc, T_stack, D_stack, vt_stack, panel):
             f"takes T_stack, D_stack, vt_stack of shapes {want}, got "
             f"{ {x: tuple(s) for x, s in got.items()} }")
     return (L_loc.shape[0] if batched else 1), n_panels, w, k
-
-
-def _upper_tiles(n_panels: int, nt: int, tile_off: int):
-    """Tiles right of the diagonal in each row panel of a shard of ``nt``
-    tiles whose first global tile is ``tile_off``."""
-    return [max(0, nt - max(0, p - tile_off + 1)) for p in range(n_panels)]
 
 
 def panel_apply_sharded_plain(L_loc, T_stack, D_stack, vt_stack, *,
@@ -99,7 +93,7 @@ def _lib():
     if not getattr(lib, "_repro_typed", False):
         ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.repro_sharded_panel.argtypes = (
-            [ptr, ptr, ptr, ll, ll, i, ptr, ptr] + [i] * 8 + [ptr])
+            [ptr, ptr, ptr, ll, ll, i, ptr, ptr] + [i] * 7 + [ptr])
         lib.repro_sharded_panel.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -134,27 +128,24 @@ def panel_apply_sharded_cuda(L_loc, T_stack, D_stack, vt_stack, *,
         raise ValueError(f"vt_stack dtype {vt_stack.dtype} differs from "
                          f"L_loc's {L_loc.dtype}")
     L_loc = L_loc.contiguous()
-    T = T_stack.to(acc)
+    T = T_stack if T_stack.dtype == acc else T_stack.to(acc)
     if T.stride(-1) != 1:
         T = T.contiguous()
-    D = D_stack.to(acc).contiguous()
+    D = (D_stack if D_stack.dtype == acc else D_stack.to(acc)).contiguous()
     vt = vt_stack.contiguous()
     out = torch.empty_like(L_loc)
     t_bs = T.stride(0) if T.ndim == 4 else 0
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    upper = sum(_upper_tiles(n_panels, w // panel, tile_off))
-    cw = column_tile(B * max(upper, 1), panel, panel, sms)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         rc = lib.repro_sharded_panel(
             L_loc.data_ptr(), out.data_ptr(), T.data_ptr(), t_bs,
             T.stride(-3), T.stride(-2), D.data_ptr(), vt.data_ptr(), B,
-            n_panels, w, panel, k, tile_off, cw, code,
+            n_panels, w, panel, k, tile_off, code,
             torch.cuda.current_stream(dev).cuda_stream)
     check_rc(rc, lib, "panel_apply_sharded")
     LAUNCHES.count += 1
-    _obs_metrics.counter("repro.kernels.launches", module="sharded",
-                         kernel="panel_apply_sharded", panel=panel).inc()
+    _obs_metrics.held_counter("repro.kernels.launches", module="sharded",
+                              kernel="panel_apply_sharded", panel=panel).inc()
     return out
 
 
@@ -245,7 +236,7 @@ def panel_phase_work(n: int, w_loc: int, panel: int, k: int, *,
     a = torch.empty((), dtype=accum_for(storage_dtype,
                                         accum_dtype)).element_size()
     n_panels, nt = n // panel, w_loc // panel
-    per_panel = _upper_tiles(n_panels, nt, tile_off)
+    per_panel = upper_tiles(n_panels, nt, tile_off)
     upper, rows_t = sum(per_panel), sum(u > 0 for u in per_panel)
     diag = sum(0 <= p - tile_off < nt for p in range(n_panels))
     nbytes = batch * (

@@ -176,6 +176,9 @@ class Registry:
     def __init__(self):
         self._lock = threading.RLock()
         self._series: Dict[Tuple[str, str], _Metric] = {}
+        #: Bumped by ``reset``: a caller that keeps a series object (to
+        #: skip the lookup on a hot path) refetches it when this moves.
+        self.generation = 0
 
     def _get(self, cls, name: str, labels: Dict[str, object], **kw):
         key = (name, _label_key(labels))
@@ -256,6 +259,7 @@ class Registry:
         within a process, like the module globals they replaced)."""
         with self._lock:
             self._series.clear()
+            self.generation += 1
 
 
 def diff_snapshots(before: Dict, after: Dict) -> Dict:
@@ -292,6 +296,22 @@ REGISTRY = Registry()
 
 def counter(name: str, **labels) -> Counter:
     return REGISTRY.counter(name, **labels)
+
+
+_HELD: Dict[Tuple, Tuple] = {}
+
+
+def held_counter(name: str, **labels) -> Counter:
+    """``counter(name, **labels)`` for a hot path: the series object is kept
+    and looked up again only when the default registry was replaced or
+    reset (a kernel wrapper counts every launch)."""
+    key = (name, *labels.items())
+    hit = _HELD.get(key)
+    if (hit is None or hit[0] is not REGISTRY
+            or hit[1] != REGISTRY.generation):
+        hit = (REGISTRY, REGISTRY.generation, REGISTRY.counter(name, **labels))
+        _HELD[key] = hit
+    return hit[2]
 
 
 def gauge(name: str, **labels) -> Gauge:

@@ -441,3 +441,17 @@ def test_metric_types_behave_like_the_jax_registry():
     assert set(snap) >= {"counters", "gauges", "histograms"}
     assert tmetrics.LATENCY_BUCKETS_S == jmetrics.LATENCY_BUCKETS_S
     assert tmetrics.REGISTRY is not jmetrics.REGISTRY
+
+
+def test_held_counter_follows_a_reset_or_replaced_registry(monkeypatch):
+    """A kernel wrapper keeps its launch counter (``held_counter``); after
+    the registry is reset or replaced it counts into the live series."""
+    name = "repro.test.held"
+    for _ in range(2):  # a fresh registry in place of the held one
+        reg = tmetrics.Registry()
+        monkeypatch.setattr(tmetrics, "REGISTRY", reg)
+        tmetrics.held_counter(name, kernel="k", panel=8).inc()
+        assert reg.value(name, kernel="k", panel=8) == 1
+    reg.reset()
+    tmetrics.held_counter(name, kernel="k", panel=8).inc(2)
+    assert reg.value(name, kernel="k", panel=8) == 2

@@ -209,12 +209,32 @@ def test_single_row_views_take_their_row_length_as_pitch(cuda):
     assert entry_err(out[0], ref[0]) <= entry_limit(torch.float32, 64)
 
 
+def at_pitch(T, pad):
+    """T as a view of a wider buffer whose ``pad`` extra columns hold NaN
+    (an odd row pitch for odd ``pad``); T itself for ``pad`` 0."""
+    if not pad:
+        return T
+    wide = torch.full(T.shape[:-1] + (T.shape[-1] + pad,), float("nan"),
+                      dtype=T.dtype, device=T.device)
+    wide[..., :T.shape[-1]] = T
+    return wide[..., :T.shape[-1]]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("apply", ["gemm", "paper"])
-@pytest.mark.parametrize("B,P,k,w,block_w", [(1, 256, 16, 4864, 512),
-                                             (3, 64, 1, 100, 64),
-                                             (2, 4, 16, 12, 512)])
-def test_panel_apply_matches_plain(cuda, B, P, k, w, block_w, apply, dtype):
+@pytest.mark.parametrize("B,P,k,w,block_w,t_pad", [
+    (1, 256, 16, 4864, 512, 0),
+    (3, 64, 1, 100, 64, 0),
+    (2, 4, 16, 12, 512, 0),
+    (1, 256, 16, 300, 512, 0),   # w not a multiple of the 64-column strip
+    (2, 100, 5, 200, 512, 0),    # P + k not a multiple of the 16-row tile
+    (1, 256, 32, 512, 512, 0),   # k = 32 at P = 256
+    (1, 256, 16, 256, 512, 0),   # the narrow tail: K split over a cluster
+    (3, 256, 16, 768, 512, 0),   # a fleet
+    (1, 256, 16, 1000, 512, 5),  # T at an odd pitch
+])
+def test_panel_apply_matches_plain(cuda, B, P, k, w, block_w, t_pad, apply,
+                                   dtype):
     dt, acc = DTYPES[dtype]
     L, V = spd(B, P + w, k, dt, 1, cuda, seed=w)
     D, vtd = L[:, :P, :P], V[:, :P].mT
@@ -223,7 +243,8 @@ def test_panel_apply_matches_plain(cuda, B, P, k, w, block_w, apply, dtype):
     name = "panel_apply_" + apply
     before = K.LAUNCHES[name].count
     if apply == "gemm":
-        out = K.panel_apply_gemm(R, vt, T, block_w=block_w, accum_dtype=acc)
+        out = K.panel_apply_gemm(R, vt, at_pitch(T, t_pad), block_w=block_w,
+                                 accum_dtype=acc)
         ref = K._gemm_plain(R, vt, T, acc)
     else:
         out = K.panel_apply_paper(R, vt, c, s, sigma=1, block_w=block_w,
@@ -234,6 +255,7 @@ def test_panel_apply_matches_plain(cuda, B, P, k, w, block_w, apply, dtype):
     lim = 4.0 if dt == torch.bfloat16 else 4.0 * P
     for x, y in zip(out, ref):
         assert x.dtype == dt and x.shape == y.shape
+        assert bool(torch.isfinite(x).all())
         assert units(x, y, u_of(dt)) <= lim
 
 
@@ -257,6 +279,28 @@ def test_gemm_apply_reads_t_through_its_pitch(cuda, P, k, dtype):
         for x, y in zip(out, ref):
             assert bool(torch.isfinite(x).all())
             assert units(x, y, u_of(dt)) <= entry_limit(dt, P)
+
+
+def test_gemm_tile_layout_is_the_kernels(cuda):
+    """The host prices the K split from the tile's layout
+    (_launch.GEMM_BN, GEMM_BK, GEMM_WARP_BLOCKS); the built kernel reports
+    its own, and the two agree. The split the wrapper picks for the card
+    is one it can place."""
+    import ctypes
+
+    from repro_torch.kernels import _launch as LA
+
+    out = (ctypes.c_int * 20)()
+    K._lib().repro_gemm_tile_layout(out)
+    assert (out[0], out[1]) == (LA.GEMM_BN, LA.GEMM_BK)
+    assert tuple(out[2:11]) == LA.GEMM_WARP_BLOCKS["vt"]
+    assert tuple(out[11:20]) == LA.GEMM_WARP_BLOCKS["panel"]
+    for code in (0, 1, 2):
+        cap = K._gemm_capacity(cuda, code)
+        assert len(cap) == len(LA.GEMM_SPLITS) and cap[0] >= 1
+        for w in (256, 1024, 4864):
+            split = LA.gemm_split(1, w, 256, 16, cap)
+            assert cap[LA.GEMM_SPLITS.index(split)] >= 1
 
 
 def chain_units(x, y, unit):
@@ -437,10 +481,14 @@ def chain_stacks(L, V, sigma, P, acc):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("sigma", [1, -1])
 @pytest.mark.parametrize("tile_off", [0, 1, 3])
-@pytest.mark.parametrize("B,P,k", [(None, 64, 1), (3, 64, 16),
-                                   (None, 256, 32)])
-def test_sharded_panel_kernel_matches_plain(cuda, B, P, k, tile_off, sigma,
-                                            dtype):
+@pytest.mark.parametrize("B,P,k,t_pad", [
+    (None, 64, 1, 0), (3, 64, 16, 0), (None, 256, 32, 0),
+    (None, 100, 5, 0),   # a tile of 64 + 36 columns; P + k = 105 rows
+    (3, 256, 16, 0),     # a fleet at the main path's panel
+    (None, 256, 16, 3),  # T at an odd pitch
+])
+def test_sharded_panel_kernel_matches_plain(cuda, B, P, k, t_pad, tile_off,
+                                            sigma, dtype):
     """One shard of four, one tile wide: its tile on, above or below the
     diagonal of each row panel, against the plain version entry by entry
     (4 P units in fp32/f64, 4 in bf16)."""
@@ -454,8 +502,8 @@ def test_sharded_panel_kernel_matches_plain(cuda, B, P, k, tile_off, sigma,
     L_loc = L[..., cols].contiguous()
     vt_loc = vt[..., cols].contiguous()
     before = SH.LAUNCHES.count
-    out = SH.panel_apply_sharded(L_loc, T, D, vt_loc, tile_off=tile_off,
-                                 panel=P, accum_dtype=acc)
+    out = SH.panel_apply_sharded(L_loc, at_pitch(T, t_pad), D, vt_loc,
+                                 tile_off=tile_off, panel=P, accum_dtype=acc)
     torch.cuda.synchronize()
     assert SH.LAUNCHES.count == before + 1
     ref = SH.panel_apply_sharded_plain(L_loc, T, D, vt_loc,
