@@ -15,14 +15,15 @@ beyond j+1 belong to columns whose rotations at block j are identities.
 Work is O(k·b²·nb), bytes O(n·b).
 
 * ``btd_chain_cuda`` launches the CUDA kernel (``csrc/btd_chain.cu``) on
-  CUDA tensors: one launch for one factor or a fleet. It replaces the TPU
-  kernel ``_btd_call`` (``blocktridiag.py:117``).
+  CUDA tensors: one launch for one factor or a fleet, any block size b
+  (a block wider than 256 rows is swept as row sub-tiles of at most 256
+  inside the launch). It replaces the TPU kernel ``_btd_call``
+  (``blocktridiag.py:117``).
 * ``btd_chain_plain`` is its plain version, the same chain as a Python
   loop over blocks (any leading fleet axis), which CPU tensors run.
 
 On CUDA a rank above 32 goes in successive column groups of at most 32, one
-launch each (``_launch.rank_groups``); the block size is the kernel's tile,
-so ``b <= 256``.
+launch each (``_launch.rank_groups``).
 """
 from __future__ import annotations
 
@@ -32,9 +33,8 @@ import torch
 
 from repro_torch.core.precision import Precision, as_dtype
 from repro_torch.core.structure import BlockTriDiagStorage
-from repro_torch.kernels._launch import (MAX_K, MAX_PANEL, LaunchCounter,
-                                         accum_for, check_rc, dtype_code,
-                                         rank_groups)
+from repro_torch.kernels._launch import (MAX_K, LaunchCounter, accum_for,
+                                         check_rc, dtype_code, rank_groups)
 from repro_torch.kernels.cholupdate import diag_recurrence
 from repro_torch.obs import metrics as _obs_metrics
 
@@ -78,8 +78,8 @@ def _lib():
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_btd_chain.argtypes = [ptr] * 4 + [i] * 6 + [ptr]
         lib.repro_btd_chain.restype = i
-        lib.repro_btd_t_pitch.argtypes = [i, i]
-        lib.repro_btd_t_pitch.restype = i
+        lib.repro_btd_scratch_elems.argtypes = [i, i, i]
+        lib.repro_btd_scratch_elems.restype = ctypes.c_longlong
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib._repro_typed = True
@@ -91,7 +91,7 @@ def btd_chain_cuda(diag, off, vt, *, sigma: int, accum_dtype=None):
     fleet. Same arguments and result as ``btd_chain_plain``; ``diag``,
     ``off``, ``vt`` are (B, nb, b, b), (B, nb-1, b, b), (B, k, nb·b).
     Raises on what the kernel does not take: non-CUDA tensors, a dtype pair
-    other than fp32/fp32, bf16/fp32 or f64/f64, ``b > 256`` or ``k > 32``.
+    other than fp32/fp32, bf16/fp32 or f64/f64, or ``k > 32``.
     """
     if diag.ndim != 4 or off.ndim != 4 or vt.ndim != 3:
         raise ValueError(f"diag, off must be (B, nb, b, b) and vt "
@@ -109,11 +109,10 @@ def btd_chain_cuda(diag, off, vt, *, sigma: int, accum_dtype=None):
         raise ValueError(f"sigma must be +1 or -1, got {sigma}")
     acc = accum_for(diag.dtype, accum_dtype)
     code = dtype_code(diag.dtype, acc)
-    if not (1 <= b <= MAX_PANEL and 1 <= k <= MAX_K):
+    if not (b >= 1 and 1 <= k <= MAX_K):
         raise ValueError(
-            f"one launch takes b <= {MAX_PANEL} and 1 <= k <= {MAX_K} "
-            f"(chol_update_blocktridiag splits a wider rank), got b={b}, "
-            f"k={k}")
+            f"one launch takes 1 <= k <= {MAX_K} (chol_update_blocktridiag "
+            f"splits a wider rank), got b={b}, k={k}")
     if not all(x.is_cuda and x.device == diag.device
                for x in (diag, off, vt)):
         raise ValueError("btd_chain_cuda takes CUDA tensors on one device")
@@ -122,12 +121,13 @@ def btd_chain_cuda(diag, off, vt, *, sigma: int, accum_dtype=None):
     d_out = diag.contiguous().clone()
     o_out = off.contiguous().clone()
     vt = vt.contiguous()
-    tp = lib.repro_btd_t_pitch(b, k)
-    tscr = torch.empty((B, b + k, tp), dtype=acc, device=dev)
+    elems = lib.repro_btd_scratch_elems(b, k, code)
+    scr = torch.empty((B, elems), dtype=acc, device=dev) if elems else None
     with torch.cuda.device(dev):
         rc = lib.repro_btd_chain(
             d_out.data_ptr(), o_out.data_ptr() if nb > 1 else None,
-            vt.data_ptr(), tscr.data_ptr(), B, nb, b, k, sigma, code,
+            vt.data_ptr(), None if scr is None else scr.data_ptr(), B, nb, b,
+            k, sigma, code,
             torch.cuda.current_stream(dev).cuda_stream)
     check_rc(rc, lib, "btd_chain")
     LAUNCHES.count += 1

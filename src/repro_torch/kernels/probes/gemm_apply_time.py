@@ -17,10 +17,10 @@ of calls after a warm-up; (b) device time only: the kernels' own time from
 ``torch.profiler`` (``key_averages``), or, where the profiler shows no
 device time, a CUDA graph of the calls replayed under events; (c) host
 microseconds per wrapper or library call, enqueue only. Then, for
-``panel_gemm_kernel``, ``sharded_panel_kernel``, ``fused_chain_kernel`` and
-``btd_chain_kernel``, nvcc's ``-Xptxas -v`` lines and a digest of each
-instance's SASS (``cuobjdump -sass``): equal digests are equal machine
-code.
+``panel_gemm_kernel``, ``sharded_panel_kernel``, ``panel_paper_kernel``,
+``diag_block_kernel``, ``fused_chain_kernel`` and the block-chain kernels
+(``btd_*``), nvcc's ``-Xptxas -v`` lines and a digest of each instance's
+SASS (``cuobjdump -sass``): equal digests are equal machine code.
 
 ``--root`` names the checkout whose ``src/`` is imported and whose kernels
 are built (into its own ``build/``), so that two commits can be compared on
@@ -54,8 +54,10 @@ from pathlib import Path
 #: (library, kernel) pairs whose registers and SASS are shown.
 KERNELS = (("panel_kernels", "panel_gemm_kernel"),
            ("sharded_panel", "sharded_panel_kernel"),
+           ("panel_kernels", "panel_paper_kernel"),
+           ("panel_kernels", "diag_block_kernel"),
            ("fused_chain", "fused_chain_kernel"),
-           ("btd_chain", "btd_chain_kernel"))
+           ("btd_chain", "btd_"))
 
 
 def timed(torch, fn, reps, warmup):

@@ -25,6 +25,7 @@ from repro_torch.kernels import blocktridiag as BT
 from repro_torch.kernels import cholupdate as K
 from repro_torch.kernels import fused as F
 from repro_torch.kernels import sharded as SH
+from repro_torch.kernels._launch import rank_groups
 
 pytestmark = pytest.mark.gpu
 
@@ -441,6 +442,123 @@ def test_no_plain_version_on_cuda_for_the_new_routes(cuda):
     with pytest.raises(ValueError, match="k <= 32"):
         BT.btd_chain_cuda(S.diag, S.off, torch.zeros(1, 33, 32,
                                                      device=cuda), sigma=1)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned sweep and block step: panels off the 32-column warp grid,
+# the one-warp and one-CTA block-chain routes, blocks above 256 rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("panel_apply", ["gemm", "paper"])
+@pytest.mark.parametrize("sigma", [1, -1])
+@pytest.mark.parametrize("k", [1, 16, 32, 33])
+@pytest.mark.parametrize("panel", [100, 37, 4])
+@pytest.mark.parametrize("B", [1, 3])
+def test_fused_sweep_off_the_warp_grid_matches_plain(cuda, B, panel, k,
+                                                     sigma, panel_apply,
+                                                     dtype):
+    """Panels that are no multiple of a warp's 32 columns (a warp's
+    columns straddle two panels, the last warp is ragged), over a factor
+    of two panels and a ragged third. k = 33 runs as two launches of 32
+    and 1 columns, so its plain version is walked the same way, one pass
+    a column group."""
+    dt, acc = DTYPES[dtype]
+    n = 2 * panel + 3
+    L, V = spd(B, n, k, dt, sigma, cuda, seed=panel + k)
+    Lp, Vp, _ = blocked._pad_to_panels(L, V, panel)
+    Lp, vt = Lp.contiguous(), Vp.mT.contiguous()
+    before = F.LAUNCHES.count
+    out_k = F.fused_chain(Lp, vt, sigma=sigma, panel=panel,
+                          panel_apply=panel_apply, accum_dtype=acc)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES.count == before + F.launch_count(
+        n, panel, method="fused", k=k)
+    out_p = Lp
+    for g in rank_groups(k):
+        out_p = F.fused_chain_plain(out_p, vt[:, g].contiguous(),
+                                    sigma=sigma, panel=panel,
+                                    panel_apply=panel_apply, accum_dtype=acc)
+    assert bool(torch.isfinite(out_k).all())
+    Lk = torch.triu(out_k)[:, :n, :n]
+    assert entry_err(Lk, torch.triu(out_p)[:, :n, :n]) <= entry_limit(dt, n)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("sigma", [1, -1])
+@pytest.mark.parametrize("B,nb,b,k", [
+    (1, 64, 4, 16),    # the smoother's block: one warp
+    (3, 16, 16, 16),   # b + k = 32: the one-warp route's edge
+    (2, 8, 31, 1),     # b + k = 32 at odd b
+    (2, 16, 16, 17),   # b + k = 33: one CTA
+    (2, 8, 64, 32),
+    (1, 4, 256, 16),
+    (1, 3, 320, 16),   # two sub-tiles, the second of 64 rows
+    (1, 3, 512, 16),   # two full sub-tiles
+])
+def test_block_chain_routes_match_plain(cuda, B, nb, b, k, sigma, dtype):
+    """Both block-chain routes and the sub-tiled blocks in one launch, at
+    the limits of test_blocktridiag_matches_plain: 4 nb b units in fp32;
+    in bf16, for nb > 1, the kernel within the plain version's distance
+    from the float64 chain refactorization plus 4 units."""
+    dt, acc = DTYPES[dtype]
+    S, V = banded(B, nb, b, k, dt, sigma, cuda, seed=nb + b + k)
+    vt = V.mT.contiguous()
+    before = BT.LAUNCHES.count
+    d_k, o_k = BT.btd_chain_cuda(S.diag, S.off, vt, sigma=sigma,
+                                 accum_dtype=acc)
+    torch.cuda.synchronize()
+    assert BT.LAUNCHES.count == before + 1
+    d_p, o_p = BT.btd_chain_plain(S.diag, S.off, vt, sigma=sigma,
+                                  accum_dtype=acc)
+    assert bool(torch.isfinite(d_k).all() and torch.isfinite(o_k).all())
+    assert torch.equal(torch.tril(d_k, -1), torch.tril(S.diag, -1))
+    if dt == torch.bfloat16:
+        orc = chain_oracle(S, V, sigma)
+        e_k = chain_units((d_k, o_k), orc, u_of(dt))
+        e_p = chain_units((d_p, o_p), orc, u_of(dt))
+        assert e_k <= e_p + 4.0, (e_k, e_p)
+    else:
+        lim = 4.0 * nb * b
+        assert units(torch.triu(d_k), torch.triu(d_p), u_of(dt)) <= lim
+        assert units(o_k, o_p, u_of(dt)) <= lim
+
+
+@pytest.mark.parametrize("sigma", [1, -1])
+def test_block_chain_keeps_wide_slabs_in_scratch(cuda, sigma):
+    """f64, b = 600, k = 32: three sub-tiles (the last of 88 rows), the
+    block's transform and both running slabs in the CTA route's global
+    scratch; 4 nb b units against the plain chain."""
+    nb, b, k = 2, 600, 32
+    S, V = banded(1, nb, b, k, torch.float64, sigma, cuda, seed=11)
+    vt = V.mT.contiguous()
+    d_k, o_k = BT.btd_chain_cuda(S.diag, S.off, vt, sigma=sigma)
+    d_p, o_p = BT.btd_chain_plain(S.diag, S.off, vt, sigma=sigma)
+    assert bool(torch.isfinite(d_k).all() and torch.isfinite(o_k).all())
+    lim = 4.0 * nb * b
+    assert units(torch.triu(d_k), torch.triu(d_p), u_of(torch.float64)) <= lim
+    assert units(o_k, o_p, u_of(torch.float64)) <= lim
+
+
+@pytest.mark.parametrize("k", [16, 48])
+def test_wide_block_factor_takes_one_launch_per_sign_block(cuda, k):
+    """A factor with b = 320 updates and downdates on the card through
+    CholFactor, ceil(k / 32) launches a sign block."""
+    S, V = banded(1, 3, 320, k, torch.float32, 1, cuda, seed=7)
+    one = BlockTriDiagStorage(S.diag[0], S.off[0])
+    f = CholFactor.from_storage(one)
+    before = BT.LAUNCHES.count
+    up = f.update(V[0])
+    down = up.downdate(V[0])
+    torch.cuda.synchronize()
+    assert BT.LAUNCHES.count == before + 2 * len(range(0, k, 32))
+    assert bool(up.is_valid()) and bool(down.is_valid())
+    ref = CholFactor.from_storage(one, backend="blocktridiag_ref").update(
+        V[0])
+    lim = 4.0 * 3 * 320
+    assert units(up.data.diag, ref.data.diag, u_of(torch.float32)) <= lim
+    assert units(up.data.off, ref.data.off, u_of(torch.float32)) <= lim
 
 
 # ---------------------------------------------------------------------------
