@@ -478,14 +478,15 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
 
-    def spd_factor(B, n, k, dtype, sigma):
+    def spd_factor(B, n, k, dtype, sigma, gen=None):
         """make_problem's procedure (B, V ~ U[0,1], A = B^T B + I) on the
         card in f64; for a downdate the start is the factor of A + V V^T,
         so A' - V V^T = A stays PD. bf16 adds n I: the rounding of the
         stored factor must not push the downdated matrix out of the PD
-        cone."""
-        Bm = torch.from_numpy(rng.uniform(size=(B, n, n))).to(dev)
-        V = torch.from_numpy(rng.uniform(size=(B, n, k))).to(dev)
+        cone. ``gen``: the generator (default the script's)."""
+        gen = rng if gen is None else gen
+        Bm = torch.from_numpy(gen.uniform(size=(B, n, n))).to(dev)
+        V = torch.from_numpy(gen.uniform(size=(B, n, k))).to(dev)
         shift = 1.0 + (n if dtype == torch.bfloat16 else 0)
         A = Bm.mT @ Bm + shift * torch.eye(n, dtype=torch.float64,
                                            device=dev)
@@ -622,29 +623,30 @@ def main(argv=None) -> int:
         check(ok, f"phase 2a case {i} disagrees")
 
     # 2b. the per-panel kernels: each output against its plain version.
+    # The diagonal pass sweeps in the plain recurrence's own operations
+    # (chol_tile.cuh sweep_wavefront): D_new, c, s and T equal its plain
+    # version's bit for bit.
+    # The shapes off the 32-column grid draw from a generator of their
+    # own, so that the phases after this one keep the inputs they have
+    # always had.
+    off_grid = np.random.default_rng(args.seed + 16)
     cases = list(itertools.product(
-        ((1, 256, 16), (3, 64, 1), (2, 4, 16), (1, 128, 32)), (1, -1),
-        dtypes))
-    print(f"phase 2b: diag_block vs plain, {len(cases)} cases (units of "
-          f"roundoff: D_new in storage, c, s, T in accum)")
+        ((1, 256, 16), (3, 64, 1), (2, 4, 16), (1, 128, 32), (3, 37, 32),
+         (1, 100, 1)), (1, -1), dtypes))
+    print(f"phase 2b: diag_block vs plain, {len(cases)} cases (D_new, c, s, "
+          f"T each equal, torch.equal)")
     for (B, P, k), sigma, (dt, acc) in cases:
-        L, V = spd_factor(B, P, k, dt, sigma)
+        L, V = spd_factor(B, P, k, dt, sigma,
+                          gen=off_grid if P in (37, 100) else None)
         vtd = V.mT.contiguous()
         out = K.diag_block(L, vtd, sigma=sigma, accum_dtype=acc)
         ref = K._diag_block_plain(L, vtd, sigma, acc)
-        state = acc or dt
-        errs = [entry_err(torch, out[0], ref[0], unit_roundoff(torch, dt))]
-        errs += [units(torch, x, y, unit_roundoff(torch, state))
-                 for x, y in zip(out[1:], ref[1:])]
-        lims = [entry_limit(torch, dt, P)] + [
-            entry_limit(torch, state, P)] * 3
-        ok = all(e <= m for e, m in zip(errs, lims)) and all(
-            bool(torch.isfinite(x).all()) for x in out)
+        same = [bool(torch.equal(x, y)) for x, y in zip(out, ref)]
+        ok = all(same) and all(bool(torch.isfinite(x).all()) for x in out)
         print(f"  B={B} P={P} k={k} sigma={sigma:+d} {str(dt)[6:]:8s} "
-              f"D {errs[0]:.3f} c {errs[1]:.3f} s {errs[2]:.3f} "
-              f"T {errs[3]:.3f} u (limits D {lims[0]:g}, c s T "
-              f"{lims[1]:g})  {'ok' if ok else 'FAIL'}")
-        check(ok, "phase 2b: diag_block disagrees with its plain version")
+              f"equal D {same[0]} c {same[1]} s {same[2]} T {same[3]}  "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, "phase 2b: diag_block differs from its plain version")
 
     cases = list(itertools.product(
         ((1, 256, 16, 512), (3, 64, 1, 100), (2, 4, 16, 64)),
@@ -765,6 +767,39 @@ def main(argv=None) -> int:
               f"  {'ok' if ok else 'FAIL'}")
         check(ok, "phase 2e: panel_apply_sharded disagrees with its plain "
               "version")
+    # 2f. the fused chain on a rank above one launch's 32 at a factor
+    # smaller than the rank: B = 3, P = 4, n = 2P + 3 = 11, k = 33, fp32,
+    # a paper downdate, two launches (32 and 1 columns), the plain version
+    # walked in the same column groups; tests/test_torch_cuda.py's
+    # test_fused_sweep_off_the_warp_grid_matches_plain case, its inputs
+    # made as that test makes them (seed P + k), its limit 4 n.
+    B33, P33, k33, n33 = 3, 4, 33, 11
+    r33 = np.random.default_rng(P33 + k33)
+    Bm33 = torch.from_numpy(r33.uniform(size=(B33, n33, n33))).to(dev)
+    V33 = torch.from_numpy(r33.uniform(size=(B33, n33, k33))).to(dev)
+    A33 = Bm33.mT @ Bm33 + torch.eye(n33, dtype=torch.float64, device=dev)
+    L33 = torch.linalg.cholesky(A33 + V33 @ V33.mT).mT.contiguous().float()
+    Lp33, Vp33, _ = blocked._pad_to_panels(L33, V33.float(), P33)
+    Lp33, vt33 = Lp33.contiguous(), Vp33.mT.contiguous()
+    before = F.LAUNCHES.count
+    o33 = F.fused_chain(Lp33, vt33, sigma=-1, panel=P33, panel_apply="paper")
+    launches33 = F.LAUNCHES.count - before
+    p33 = Lp33
+    for g in F.rank_groups(k33):
+        p33 = F.fused_chain_plain(p33, vt33[:, g].contiguous(), sigma=-1,
+                                  panel=P33, panel_apply="paper")
+    e33 = entry_err(torch, torch.triu(o33)[:, :n33, :n33],
+                    torch.triu(p33)[:, :n33, :n33],
+                    unit_roundoff(torch, torch.float32))
+    lim33 = entry_limit(torch, torch.float32, n33)
+    want33 = F.launch_count(n33, P33, method="fused", k=k33)
+    ok = (e33 <= lim33 and launches33 == want33
+          and bool(torch.isfinite(o33).all()))
+    print(f"phase 2f: fused B={B33} n={n33} panel={P33} k={k33} paper "
+          f"downdate fp32 vs plain {e33:.3f} u (limit {lim33:g}), launches "
+          f"{launches33} (want {want33})  {'ok' if ok else 'FAIL'}")
+    check(ok, "phase 2f: the k = 33 fused paper downdate disagrees with "
+          "plain")
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 3 + 4. the main paths: counts from 0 just before each, read after ---
@@ -1195,32 +1230,35 @@ def main(argv=None) -> int:
               f"{lim:g})")
         check(err <= lim, f"kernel disagrees with plain on the {name} fleet")
 
-    # The per-panel kernels on panel 0 of the n = 5000 cascade.
+    # The per-panel kernels on panel 0 of the n = 5000 cascade; the
+    # diagonal pass equal to its plain version in fp32 and in f64.
     D0, vtd0 = Lp[0, :P, :P], vt[0, :, :P]
     out = K.diag_block(D0, vtd0, sigma=1)
     ref = K._diag_block_plain(D0, vtd0.contiguous(), 1, None)
-    errs = [entry_err(torch, out[0], ref[0], u32)] + [
-        units(torch, x, y, u32) for x, y in zip(out[1:], ref[1:])]
+    same = [bool(torch.equal(x, y)) for x, y in zip(out, ref)]
     max_err["diag_block"] = max(float((x - y).abs().max())
                                 for x, y in zip(out, ref))
+    D64, vtd64 = D0.double(), vtd0.double().contiguous()
+    same += [bool(torch.equal(x, y)) for x, y in zip(
+        K.diag_block(D64, vtd64, sigma=1),
+        K._diag_block_plain(D64, vtd64, 1, None))]
     _, c0, s0, T0 = ref
     R0, vtr0 = Lp[0, :P, P:], vt[0, :, P:]
     og = K.panel_apply_gemm(R0, vtr0, T0)
     rg = K._gemm_plain(R0, vtr0, T0, None)
     opp = K.panel_apply_paper(R0, vtr0, c0, s0, sigma=1)
     rp = K._paper_plain(R0, vtr0, c0, s0, 1, None)
-    errs += [units(torch, x, y, u32) for x, y in zip(og + opp, rg + rp)]
+    errs = [units(torch, x, y, u32) for x, y in zip(og + opp, rg + rp)]
     max_err["panel_apply_gemm"] = max(float((x - y).abs().max())
                                       for x, y in zip(og, rg))
     max_err["panel_apply_paper"] = max(float((x - y).abs().max())
                                        for x, y in zip(opp, rp))
-    lims = [entry_limit(torch, torch.float32, P)] * 8
-    print(f"per-panel kernels vs plain on panel 0 at n={n} (units): "
-          f"diag_block D {errs[0]:.3f} c {errs[1]:.3f} s {errs[2]:.3f} "
-          f"T {errs[3]:.3f} (limits {lims[0]:g}, {lims[1]:g}); gemm R "
-          f"{errs[4]:.3f} vt {errs[5]:.3f}; paper R {errs[6]:.3f} vt "
-          f"{errs[7]:.3f} (limit {lims[4]:g})")
-    check(all(e <= m for e, m in zip(errs, lims)),
+    lims = [entry_limit(torch, torch.float32, P)] * 4
+    print(f"per-panel kernels vs plain on panel 0 at n={n}: diag_block "
+          f"D_new, c, s, T equal fp32 {same[:4]}, f64 {same[4:]}; gemm R "
+          f"{errs[0]:.3f} vt {errs[1]:.3f}; paper R {errs[2]:.3f} vt "
+          f"{errs[3]:.3f} u (limit {lims[0]:g})")
+    check(all(same) and all(e <= m for e, m in zip(errs, lims)),
           "a per-panel kernel disagrees with its plain version at n=5000")
 
     # The per-panel kernels on panel 0 of the B = 64 cascade fleet, in place
@@ -1236,21 +1274,17 @@ def main(argv=None) -> int:
         K.panel_apply_gemm_(R, vr, T_k, accum_dtype=acc)
         ref = K._diag_block_plain(D_in, vd_in, 1, acc)
         R_p, vr_p = K._gemm_plain(R_in, vr_in, T_k, acc)
-        unit, state = unit_roundoff(torch, dt), acc or dt
-        errs = [entry_err(torch, D, ref[0], unit)] + [
-            units(torch, x, y, unit_roundoff(torch, state))
-            for x, y in zip((c_k, s_k, T_k), ref[1:])]
-        errs += [units(torch, R, R_p, unit), units(torch, vr, vr_p, unit)]
-        lims = [entry_limit(torch, dt, P)] + [
-            entry_limit(torch, state, P)] * 3 + [entry_limit(torch, dt, P)] * 2
-        ok = (all(e <= m for e, m in zip(errs, lims))
+        unit = unit_roundoff(torch, dt)
+        same = [bool(torch.equal(x, y))
+                for x, y in zip((D, c_k, s_k, T_k), ref)]
+        errs = [units(torch, R, R_p, unit), units(torch, vr, vr_p, unit)]
+        lim = entry_limit(torch, dt, P)
+        ok = (all(same) and all(e <= lim for e in errs)
               and not bool(vd.any()))
         print(f"per-panel kernels vs plain on panel 0 of the fleet B={nb} "
-              f"n={fb} {name} (member-strided views, units): diag_block D "
-              f"{errs[0]:.3f} c {errs[1]:.3f} s {errs[2]:.3f} T "
-              f"{errs[3]:.3f} (limits {lims[0]:g}, {lims[1]:g}); gemm R "
-              f"{errs[4]:.3f} vt {errs[5]:.3f} (limit {lims[4]:g})  "
-              f"{'ok' if ok else 'FAIL'}")
+              f"n={fb} {name} (member-strided views): diag_block D_new, c, "
+              f"s, T equal {same}; gemm R {errs[0]:.3f} vt {errs[1]:.3f} u "
+              f"(limit {lim:g})  {'ok' if ok else 'FAIL'}")
         check(ok, f"a per-panel kernel disagrees with its plain version on "
               f"the {name} fleet")
         del Lx, vtx, D, vd, R, vr, D_in, vd_in, R_in, vr_in
@@ -1444,7 +1478,7 @@ def main(argv=None) -> int:
         d_ms, _ = timed(torch, lambda: fc.update(V), reps=5, warmup=1)
         h_ms, _ = host_timed(torch, lambda: fc.update(V), reps=5)
         casc_t[method] = (d_ms, h_ms)
-    print(f"timing cascade n={n} k={k} panel={P} fp32 ({nd} diagonal "
+    print(f"timing cascade n={n} k={k} panel={P} fp32 on {card} ({nd} diagonal "
           f"blocks, {len(widths)} applies, widths {widths[0]}..{widths[-1]})"
           f": per update diag_block {diag_ms:.3f} ms (plain {pdiag_ms:.1f}, "
           f"bound {b_diag[0]:.4f} by {b_diag[1]}); panel_apply_gemm "

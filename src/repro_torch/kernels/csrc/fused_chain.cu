@@ -25,14 +25,15 @@
 // once plus V^T read once (fused.bytes_per_update, 110 MB at n=5000 fp32,
 // ~33 us at 3.35 TB/s); by operations, the gemm apply's 2 (P+k)^2 P per
 // tile (~7.3 GFLOP at n=5000, P=256, k=16, ~110 us at 67 TFLOP/s fp32).
-// Beyond both, the chain is serial: each diagonal block is P dependent row
-// steps, and diagonal p+1 waits for diagonal p and the apply on (p, p+1).
-// The design shortens that chain: each thread of the diagonal sweep owns
-// two columns and keeps their k V values in registers, the k rotations of a
-// row come from one warp scan, the column updates multiply by 1/c, one
-// barrier per row, and the apply on the critical tile is split over G
-// blocks. CUDA cores only: TF32 tensor cores would break the fp32 error
-// budget. See PERF.md.
+// Beyond both, the chain is serial: diagonal p+1 waits for diagonal p and
+// the apply on (p, p+1). The design shortens that chain: the diagonal
+// sweep is chol_tile.cuh's sweep_wavefront (the reference recurrence's own
+// operations, so each diagonal block's D_new, T, c and s are the plain
+// chain's, scheduled by anti-diagonals of (row, rotation): P + k - 1
+// dependent steps instead of P k, one column a thread with its k V values
+// in registers, warps paced by mbarriers instead of a block barrier a row),
+// and the apply on the critical tile is split over G blocks. CUDA cores
+// only: TF32 tensor cores would break the fp32 error budget. See PERF.md.
 #include <cstddef>
 #include <cstdint>
 
@@ -60,15 +61,13 @@ __device__ __forceinline__ void wait_flag(const int* flag, int value) {
 }
 
 template <int KM, typename S, typename A>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWaveThreads)
 fused_chain_kernel(S* L, const S* vt, A* tscr, A* cscr, A* sscr, S* slabscr,
                    int* flags, int B, int n_pad, int P, int k, int G,
                    int sigma_i, int paper) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_ticket;
-  __shared__ __align__(16) A rot[kRotElems];
-  __shared__ A vnext[kNextElems];
-  __shared__ A dg[kMaxPanel];
+  __shared__ __align__(16) WaveSmem<A> ws;
   const int tid = threadIdx.x;
   const int nP = n_pad / P;
   const int pk = P + k;
@@ -88,7 +87,7 @@ fused_chain_kernel(S* L, const S* vt, A* tscr, A* cscr, A* sscr, S* slabscr,
   S* slab = reinterpret_cast<S*>(smem);  // k x P, this block's W columns
   A* work = reinterpret_cast<A*>(smem + align16(sizeof(S) * size_t(k) * P));
   const S* vtb = vt + size_t(b) * k * n_pad + size_t(t) * P + g * W;
-  for (int e = tid; e < k * W; e += kThreads) {
+  for (int e = tid; e < k * W; e += kWaveThreads) {
     const int m = e / W, j = e % W;
     slab[m * P + g * W + j] = vtb[size_t(m) * n_pad + j];
   }
@@ -101,20 +100,20 @@ fused_chain_kernel(S* L, const S* vt, A* tscr, A* cscr, A* sscr, S* slabscr,
     S* R = Lb + size_t(p) * P * n_pad + size_t(t) * P + g * W;
     const size_t tile = size_t(b) * nP + p;
     if (paper) {
-      rotation_apply_tile<KM, S, A>(R, n_pad, slab + g * W, P, W,
-                                cscr + tile * P * k, sscr + tile * P * k,
-                                work, P, k, sigma);
+      rotation_apply_tile<KM, S, A, true>(
+          R, n_pad, slab + g * W, P, W, cscr + tile * P * k,
+          sscr + tile * P * k, work, P, k, sigma);
     } else {
-      gemm_apply_tile<S, A>(R, n_pad, slab + g * W, P, W,
-                            tscr + tile * pk * tp, tp, work,
-                            work + kTRows * kChunkW, P, k);
+      gemm_apply_tile<S, A, S, false, true>(R, n_pad, slab + g * W, P, W,
+                                            tscr + tile * pk * tp, tp, work,
+                                            work + kTRows * kChunkW, P, k);
     }
   }
 
   S* scr = slabscr + size_t(bt) * k * P;
   if (g > 0) {
     // Hand this group's slab columns to the leader.
-    for (int e = tid; e < k * W; e += kThreads) {
+    for (int e = tid; e < k * W; e += kWaveThreads) {
       const int m = e / W, j = e % W;
       scr[m * P + g * W + j] = slab[m * P + g * W + j];
     }
@@ -126,7 +125,7 @@ fused_chain_kernel(S* L, const S* vt, A* tscr, A* cscr, A* sscr, S* slabscr,
   if (G > 1) {
     if (tid == 0) wait_flag(handed + bt, G - 1);
     __syncthreads();
-    for (int e = tid; e < k * (P - W); e += kThreads) {
+    for (int e = tid; e < k * (P - W); e += kWaveThreads) {
       const int m = e / (P - W), j = W + e % (P - W);
       slab[m * P + j] = load_cg(scr + m * P + j);
     }
@@ -134,10 +133,11 @@ fused_chain_kernel(S* L, const S* vt, A* tscr, A* cscr, A* sscr, S* slabscr,
   }
   S* D = Lb + size_t(t) * P * n_pad + size_t(t) * P;
   const size_t tile = size_t(bt);
-  diag_tile<KM, S, A>(D, n_pad, slab, rot, vnext, dg,
-                  paper ? nullptr : tscr + tile * pk * tp,
-                  paper ? cscr + tile * P * k : nullptr,
-                  paper ? sscr + tile * P * k : nullptr, P, k, sigma);
+  sweep_wavefront<KM, S, A>(D, n_pad, slab, ws,
+                            paper ? nullptr : tscr + tile * pk * tp,
+                            paper ? cscr + tile * P * k : nullptr,
+                            paper ? sscr + tile * P * k : nullptr, P, k,
+                            sigma);
   // Release: every thread's T / (c, s) / D_new stores are visible device-
   // wide before the flag flips.
   __threadfence();
@@ -164,7 +164,7 @@ int launch_km(void* L, const void* vt, void* tscr, void* cscr, void* sscr,
       int(smem));
   if (err != cudaSuccess) return int(err);
   const int nP = n_pad / P;
-  fused_chain_kernel<KM, S, A><<<B * nP * G, kThreads, smem, stream>>>(
+  fused_chain_kernel<KM, S, A><<<B * nP * G, kWaveThreads, smem, stream>>>(
       static_cast<S*>(L), static_cast<const S*>(vt), static_cast<A*>(tscr),
       static_cast<A*>(cscr), static_cast<A*>(sscr), static_cast<S*>(slabscr),
       static_cast<int*>(flags), B, n_pad, P, k, G, sigma, paper);

@@ -13,20 +13,21 @@
 // so the driver hands it views of the padded L and V^T and nothing is
 // copied. A (B, n, n) fleet rides the same launch: one CTA per member for
 // the diagonal pass, a grid over (column tile, member) for the applies.
-// The diagonal sweep (two live columns per thread, V values in registers)
-// and the element-wise rotation chain are the fused kernel's tile math
-// (chol_tile.cuh); the transform-GEMM apply runs on the tile of
-// gemm_tile.cuh (3xTF32 on the tensor cores for fp32 accumulation, a
-// cp.async ring of K slices, full-height column strips so it may write in
-// place, K split over a thread-block cluster for narrow applies). The diagonal pass runs the
-// sweep in its reference arithmetic (diag_tile's kRef: each row's
-// rotations one at a time, divisions, no fused multiply-adds), so D_new,
-// c, s and T are the plain recurrence's own values; the rotation state carries all P k rotations of the block,
-// and the faster warp-scan form drifts from the plain values by ~0.25
-// units per rotation.
+// The diagonal sweep and the element-wise rotation chain are the fused
+// kernel's tile math (chol_tile.cuh); the transform-GEMM apply runs on the
+// tile of gemm_tile.cuh (3xTF32 on the tensor cores for fp32
+// accumulation, a cp.async ring of K slices, full-height column strips so
+// it may write in place, K split over a thread-block cluster for narrow
+// applies). The diagonal pass is sweep_wavefront: the reference
+// recurrence's own operations (square roots, divisions, no fused
+// multiply-adds), so D_new, c, s and T are the plain recurrence's bit for
+// bit (the rotation state carries all P k rotations of the block, and a
+// warp-scan form drifts ~0.25 units a rotation), taken by anti-diagonals
+// of (row, rotation), P + k - 1 dependent steps.
 //
-// What bounds them on an H100: the diagonal pass is one CTA walking P
-// dependent rows of k serial rotations (PERF.md), far above its bytes;
+// What bounds them on an H100: the diagonal pass is one CTA per block,
+// bounded by its dependent chain and one SM's issue rate (PERF.md), far
+// above its bytes;
 // the applies move the trailing panel once in and once out (bytes) and the
 // gemm apply does 2 (P(P+1)/2 + 2Pk + k(k+1)/2) per column, T_rr and T_vv
 // being lower triangular (operations at the fp32 rate: 3xTF32 keeps fp32
@@ -53,30 +54,27 @@ __host__ __device__ constexpr size_t align16(size_t x) {
 // With zero_slab the slab is written back as the recurrence leaves it:
 // annihilated.
 template <int KM, typename S, typename A>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWaveThreads)
 diag_block_kernel(S* D, long long d_bs, int ld, S* vt, long long v_bs,
                   int ldv, A* T, A* c, A* s, int P, int k, int sigma_i,
                   int zero_slab) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(16) A rot[kRotElems];
-  __shared__ A vnext[kNextElems];
-  __shared__ A dg[kMaxPanel];
+  __shared__ __align__(16) WaveSmem<A> ws;
   const int b = blockIdx.x;
   S* Db = D + b * d_bs;
   S* vb = vt + b * v_bs;
   S* slab = reinterpret_cast<S*>(smem);  // k x P, pitch P
-  for (int e = threadIdx.x; e < k * P; e += kThreads) {
+  for (int e = threadIdx.x; e < k * P; e += kWaveThreads) {
     slab[e] = vb[size_t(e / P) * ldv + e % P];
   }
   __syncthreads();
   const size_t tp = t_pitch(P, k);
-  diag_tile<KM, S, A, true>(Db, ld, slab, rot, vnext, dg,
-                      T == nullptr ? nullptr : T + b * size_t(P + k) * tp,
-                      c == nullptr ? nullptr : c + b * size_t(P) * k,
-                      s == nullptr ? nullptr : s + b * size_t(P) * k, P, k,
-                      A(sigma_i));
+  sweep_wavefront<KM, S, A>(
+      Db, ld, slab, ws, T == nullptr ? nullptr : T + b * size_t(P + k) * tp,
+      c == nullptr ? nullptr : c + b * size_t(P) * k,
+      s == nullptr ? nullptr : s + b * size_t(P) * k, P, k, A(sigma_i));
   if (zero_slab) {
-    for (int e = threadIdx.x; e < k * P; e += kThreads) {
+    for (int e = threadIdx.x; e < k * P; e += kWaveThreads) {
       vb[size_t(e / P) * ldv + e % P] = down<S>(A(0));
     }
   }
@@ -143,7 +141,7 @@ int diag_km(void* D, long long d_bs, int ld, void* vt, long long v_bs,
   const size_t smem = align16(sizeof(S) * size_t(k) * P);
   cudaError_t err = allow_smem(diag_block_kernel<KM, S, A>, smem);
   if (err != cudaSuccess) return int(err);
-  diag_block_kernel<KM, S, A><<<B, kThreads, smem, stream>>>(
+  diag_block_kernel<KM, S, A><<<B, kWaveThreads, smem, stream>>>(
       static_cast<S*>(D), d_bs, ld, static_cast<S*>(vt), v_bs, ldv,
       static_cast<A*>(T), static_cast<A*>(c), static_cast<A*>(s), P, k,
       sigma, zero_slab);

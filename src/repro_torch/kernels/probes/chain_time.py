@@ -14,7 +14,17 @@ the same in every checkout):
   ``examples/kalman_smoother.py``'s at T = 8192, V over 8 consecutive
   blocks): one ``btd_chain_cuda`` launch;
 * wide block b = 64, nb = 512;
-* structured fleet B = 64, b = 16, nb = 512, fp32 and bf16.
+* structured fleet B = 64, b = 16, nb = 512, fp32 and bf16;
+* diag_block: the diagonal pass of panel 0 of the n = 5000 factor (one
+  ``diag_block`` launch, functional form), and of panel 0 of the B = 64,
+  n = 1024 fleet, fp32 and bf16 (one launch for the fleet); its digest
+  covers D_new, c, s and T, which are the plain recurrence's bit for bit,
+  so it is the same in every checkout whose kernel is right;
+* pallas_gemm: one ``CholFactor.update`` of the n = 5000 factor through
+  the cascade (20 ``diag_block`` and 19 ``panel_apply_gemm`` launches);
+* sharded: one ``CholFactor.update`` through the column-sharded driver on
+  one rank (a process group of one, NCCL where there is one, else gloo),
+  n = 5120 (the paper's 5000 in whole panels), at the end of the run.
 
 Before the rows, the digest of ``fused_chain_cuda``'s output on small
 cases of every kind the kernel takes: fp32, bf16 storage and f64; the gemm
@@ -57,7 +67,9 @@ import sys
 from pathlib import Path
 
 ROWS = ("fused", "fused fleet fp32", "fused fleet bf16", "smoother", "wide",
-        "structured fleet fp32", "structured fleet bf16")
+        "structured fleet fp32", "structured fleet bf16", "diag_block",
+        "diag_block fleet fp32", "diag_block fleet bf16", "pallas_gemm",
+        "sharded")
 
 
 def timed(torch, fn, reps, warmup=1):
@@ -133,8 +145,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chain_time: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.core import blocked
+    from repro_torch.core import CholFactor, blocked
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cholupdate as K
     from repro_torch.kernels import blocktridiag as BT
     from repro_torch.kernels import fused as F
 
@@ -156,7 +169,10 @@ def main(argv=None) -> int:
         L = torch.linalg.cholesky(A).mT.contiguous()
         Vt = torch.from_numpy(V).to(dev)
         Lp, Vp, _ = blocked._pad_to_panels(L, Vt, P)
+        inputs[(B, n)] = (L, Vt)
         return Lp.contiguous(), Vp.mT.contiguous(), A + Vt @ Vt.mT
+
+    inputs = {}
 
     def banded(B, nb, b, k, span):
         """The smoke's banded factor (off-diagonals of a diagonal block
@@ -203,23 +219,40 @@ def main(argv=None) -> int:
               f"sigma={sigma:+d}: sha256 {digest(torch, out)}")
 
     rows = {}
-    if "fused" in args.only:
+    if {"fused", "diag_block", "pallas_gemm"} & set(args.only):
         Lp, vt, A_mod = fused_inputs(1, 5000, 16)
         Lp, vt = Lp.float(), vt.float()
         A32 = A_mod[0].float()
+    if "fused" in args.only:
         rows["fused"] = (lambda: F.fused_chain_cuda(Lp, vt, sigma=1,
                                                     panel=256),
                          lambda: torch.linalg.cholesky(A32))
+    fleet = None
     for prec in ("fp32", "bf16"):
-        name = f"fused fleet {prec}"
-        if name not in args.only:
+        names = [f"fused fleet {prec}", f"diag_block fleet {prec}"]
+        if not set(names) & set(args.only):
             continue
-        Lf, vtf, _ = fused_inputs(64, 1024, 16)
+        if fleet is None:
+            fleet = fused_inputs(64, 1024, 16)[:2]
         dt = torch.float32 if prec == "fp32" else torch.bfloat16
-        Lf, vtf = Lf.to(dt), vtf.to(dt)
+        Lf, vtf = fleet[0].to(dt), fleet[1].to(dt)
         acc = None if prec == "fp32" else torch.float32
-        rows[name] = (lambda Lf=Lf, vtf=vtf, acc=acc: F.fused_chain_cuda(
-            Lf, vtf, sigma=1, panel=256, accum_dtype=acc), None)
+        if names[0] in args.only:
+            rows[names[0]] = (lambda Lf=Lf, vtf=vtf, acc=acc:
+                              F.fused_chain_cuda(Lf, vtf, sigma=1, panel=256,
+                                                 accum_dtype=acc), None)
+        if names[1] in args.only:
+            Df, vdf = Lf[:, :256, :256], vtf[:, :, :256].contiguous()
+            rows[names[1]] = (lambda Df=Df, vdf=vdf, acc=acc: K.diag_block(
+                Df, vdf, sigma=1, accum_dtype=acc), None)
+    if "diag_block" in args.only:
+        D0, vd0 = Lp[0, :256, :256], vt[0, :, :256].contiguous()
+        rows["diag_block"] = (lambda: K.diag_block(D0, vd0, sigma=1), None)
+    if "pallas_gemm" in args.only:
+        L1, V1 = inputs[(1, 5000)]
+        fc = CholFactor(L1[0].float(), panel=256, backend="pallas_gemm")
+        V1 = V1[0].float()
+        rows["pallas_gemm"] = (lambda: fc.update(V1).data, None)
     chains = {"smoother": (1, 8192, 4, 16, 8),
               "wide": (1, 512, 64, 16, 512),
               "structured fleet fp32": (64, 512, 16, 16, 512),
@@ -234,6 +267,10 @@ def main(argv=None) -> int:
         rows[name] = (lambda d=d, o=o, v=v, acc=acc: BT.btd_chain_cuda(
             d, o, v, sigma=1, accum_dtype=acc), None)
 
+    store = None
+    if "sharded" in args.only:
+        update, store = sharded_update(torch, rng, dev)
+        rows["sharded"] = (update, None)
     for name, (kernel, library) in rows.items():
         out = kernel()
         torch.cuda.synchronize()
@@ -261,7 +298,40 @@ def main(argv=None) -> int:
                   f"{rest:.4f} ms, {rest / (step[1] + rest):.3f} of a step",
                   flush=True)
     print(card)
+    if store is not None:
+        import shutil
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
     return 0
+
+
+def sharded_update(torch, rng, dev, n=5120, k=16, P=256):
+    """One update of an n x n factor through the column-sharded driver on
+    a process group of one rank (NCCL where there is one, else gloo; one
+    rank takes no collective); returns the call, whose result is the
+    gathered factor, and the process group's store directory."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import CholFactor, distributed
+
+    store = tempfile.mkdtemp(prefix="chain_time_")
+    dist.init_process_group("nccl" if dist.is_nccl_available() else "gloo",
+                            init_method=f"file://{store}/store",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("model",))
+    Bm = torch.from_numpy(rng.uniform(size=(n, n))).to(dev)
+    V = torch.from_numpy(rng.uniform(size=(n, k))).to(dev)
+    L = torch.linalg.cholesky(Bm.mT @ Bm + torch.eye(
+        n, dtype=torch.float64, device=dev)).mT.contiguous().float()
+    f = CholFactor(L, panel=P, backend="sharded", mesh=mesh)
+    V = V.float()
+    return lambda: distributed.gather(f.update(V).data), store
 
 
 def chain_errors(torch, np, BT, dev):

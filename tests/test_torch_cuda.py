@@ -199,6 +199,50 @@ def test_diag_block_matches_plain(cuda, B, P, k, sigma, dtype):
         assert units(x, y, u_of(state)) <= entry_limit(state, P)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("sigma", [1, -1])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("P", [4, 37, 100, 256])
+def test_diag_block_equals_plain_bit_for_bit(cuda, P, k, B, sigma, dtype):
+    """The wavefront sweep takes every rotation in the reference's own
+    operations, in the reference's order for each element: D_new, c, s
+    and T are the plain recurrence's, bit for bit, in one launch."""
+    dt, acc = DTYPES[dtype]
+    L, V = spd(B, P + 8, k, dt, sigma, cuda, seed=3 * P + k)
+    D, vtd = L[:, :P, :P], V[:, :P].mT
+    before = K.LAUNCHES["diag_block"].count
+    out = K.diag_block(D, vtd, sigma=sigma, accum_dtype=acc)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["diag_block"].count == before + 1
+    ref = K._diag_block_plain(D, vtd.contiguous(), sigma, acc)
+    for x, y in zip(out, ref):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert bool(torch.isfinite(x).all())
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("panel_apply", ["gemm", "paper"])
+@pytest.mark.parametrize("sigma", [1, -1])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("P", [4, 37, 100, 256])
+def test_fused_single_tile_equals_plain(cuda, P, k, B, sigma, panel_apply,
+                                        dtype):
+    """A factor of one tile (n = P) is one diagonal sweep and no apply: the
+    fused kernel's result is the plain chain's, bit for bit."""
+    dt, acc = DTYPES[dtype]
+    L, V = spd(B, P, k, dt, sigma, cuda, seed=5 * P + k)
+    vt = V.mT.contiguous()
+    out_k = F.fused_chain_cuda(L, vt, sigma=sigma, panel=P,
+                               panel_apply=panel_apply, accum_dtype=acc)
+    out_p = F.fused_chain_plain(L, vt, sigma=sigma, panel=P,
+                                panel_apply=panel_apply, accum_dtype=acc)
+    assert bool(torch.isfinite(torch.triu(out_k)).all())
+    assert torch.equal(torch.triu(out_k), torch.triu(out_p))
+
+
 def test_single_row_views_take_their_row_length_as_pitch(cuda):
     """V.mT.contiguous() of a rank-1 V keeps a view whose one row has
     stride 1; the wrappers must not pass that as the leading dimension."""
