@@ -16,13 +16,14 @@ The cascade's transform-GEMM apply (``csrc/gemm_tile.cuh``) takes its K
 split over a thread-block cluster and the slices each rank sums from here:
 ``gemm_split`` and ``gemm_split_bounds``, priced by the tile's layout
 (``GEMM_BN``, ``GEMM_BK``, ``GEMM_WARP_BLOCKS``), which a test on the card
-holds equal to the kernel's own (``repro_gemm_tile_layout``).
+holds equal to the kernel's own (``repro_gemm_tile_layout``). The paper's
+wavefront apply (``panel_kernels.cu`` ``panel_paper_kernel``) takes the
+warps of its CTAs from ``paper_warps``.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-import math
 from typing import List, Tuple
 
 import torch
@@ -80,22 +81,6 @@ def rank_groups(k: int) -> List[slice]:
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     return [slice(lo, min(lo + MAX_K, k)) for lo in range(0, k, MAX_K)]
-
-
-def column_tile(batch: int, w: int, block_w: int, sms: int) -> int:
-    """Columns per CTA of a panel apply over ``w`` trailing columns.
-
-    ``block_w`` (rounded down to a multiple of 32, at least 32) caps the
-    tile; it halves, in multiples of 32, while the grid of
-    ``batch * ceil(w / tile)`` CTAs does not yet cover ``sms``
-    multiprocessors. The tile changes the schedule, not the result.
-    """
-    if block_w < 1:
-        raise ValueError(f"block_w must be >= 1, got {block_w}")
-    tile = max(32, block_w // 32 * 32)
-    while tile > 32 and batch * math.ceil(w / tile) < sms:
-        tile = max(32, tile // 64 * 32)
-    return tile
 
 
 def check_rc(rc: int, lib, what: str) -> None:
@@ -226,3 +211,82 @@ def upper_tiles(n_panels: int, nt: int, tile_off: int) -> List[int]:
     """Tiles right of the diagonal in each row panel of a shard of ``nt``
     tiles whose first global tile is ``tile_off``."""
     return [max(0, nt - max(0, p - tile_off + 1)) for p in range(n_panels)]
+
+
+# ---------------------------------------------------------------------------
+# The paper's wavefront apply (csrc/panel_kernels.cu panel_paper_kernel)
+# ---------------------------------------------------------------------------
+
+#: Warps a CTA of the paper apply may take (kPaperMinWarps..kPaperMaxWarps).
+PAPER_WARPS = (16, 8, 4)
+#: Rows of each of the kernel's two shared-memory rings (kPaperRing).
+PAPER_RING = 96
+#: Shared memory a CTA may take under the rule: two CTAs fit an SM.
+PAPER_SMEM_CAP = 113 * 1024
+#: The rule's model of a tick: the latency of its dependent steps (a
+#: shuffle, an add, div_pre's three operations, a select) in cycles; the
+#: instructions a warp issues for it; a CTA's staging of the rotations, in
+#: instructions a tick and a lane of a column's segment. Estimated from
+#: the code; on an H100 the rule's pick was the fastest of 4, 8 and 16
+#: warps at every width of the n = 5000 cascade, k = 1, 16 and 32, and
+#: within 6 % of it for the B = 64 fleet (probes/paper_tick.py, PERF.md).
+PAPER_TICK_CYCLES = 48
+PAPER_TICK_ISSUE = 32
+PAPER_STAGE_ISSUE = 0.4
+
+
+def paper_lanes(k: int) -> int:
+    """Lanes of the segment that owns one column: k rounded up to 8, 16 or
+    32 (the kernel's buckets), 1 at k = 1."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
+    return 1 if k == 1 else next(b for b in (8, 16, 32) if k <= b)
+
+
+def paper_cpw(k: int) -> int:
+    """Columns a warp of the paper apply holds: 32 / ``paper_lanes(k)``."""
+    return 32 // paper_lanes(k)
+
+
+def paper_smem(k: int, nw: int, itemsize: int) -> int:
+    """Dynamic shared memory of a CTA of ``nw`` warps (kernel
+    ``paper_smem_bytes``): the rotation ring, four accum values an entry,
+    and the row ring of the CTA's columns, one row longer."""
+    return itemsize * (PAPER_RING * 4 * paper_lanes(k)
+                       + (PAPER_RING + 1) * nw * paper_cpw(k))
+
+
+@functools.lru_cache(maxsize=1024)
+def paper_warps(batch: int, w: int, k: int, sms: int,
+                itemsize: int = 4) -> int:
+    """Warps a CTA of the paper apply takes over ``w`` columns of each of
+    ``batch`` members (accum values of ``itemsize`` bytes).
+
+    A CTA of nw warps holds nw ``paper_cpw(k)`` columns. On the busiest
+    of the ``sms`` multiprocessors, with ceil(CTAs / sms) CTAs, a tick
+    costs the larger of its latency and what its four schedulers issue:
+    each warp's tick and each CTA's staging. The rule takes the cheapest
+    tick, then the most warps (fewer CTAs stage the rotations), among the
+    sizes whose shared memory lets two CTAs share an SM. It changes the
+    schedule, not the result."""
+    if batch < 1 or w < 1 or sms < 1:
+        raise ValueError(f"batch, w and sms must be >= 1, got {batch}, {w}, "
+                         f"{sms}")
+    kp = paper_lanes(k)
+    best = None
+    for nw in PAPER_WARPS:
+        if paper_smem(k, nw, itemsize) > PAPER_SMEM_CAP:
+            continue
+        ctas = batch * -(-w // (nw * paper_cpw(k)))
+        issue = -(-ctas // sms) * (nw * PAPER_TICK_ISSUE
+                                   + kp * PAPER_STAGE_ISSUE) / 4
+        key = (max(PAPER_TICK_CYCLES, issue), -nw)
+        if best is None or key < best[0]:
+            best = (key, nw)
+    return best[1]
+
+
+#: The largest P + k whose fp32 gemm apply takes the FFMA form (kernel
+#: ``kFfmaRows``): exact fp32 products where the 3xTF32 split's error is
+#: not small against the 4 P limit.
+GEMM_FFMA_ROWS = 64

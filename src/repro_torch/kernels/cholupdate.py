@@ -31,10 +31,11 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._launch import (MAX_K, MAX_PANEL, LaunchCounter,
-                                         accum_for, check_rc, column_tile,
-                                         dtype_code, gemm_pack_bounds,
-                                         gemm_split, gemm_split_bounds,
-                                         on_device, sm_count, GEMM_SPLITS)
+                                         accum_for, check_rc, dtype_code,
+                                         gemm_pack_bounds, gemm_split,
+                                         gemm_split_bounds, on_device,
+                                         paper_warps, sm_count,
+                                         GEMM_FFMA_ROWS, GEMM_SPLITS)
 from repro_torch.obs import metrics as _obs_metrics
 
 #: Launches of each per-panel CUDA kernel, by kernel name.
@@ -127,8 +128,10 @@ def _lib():
         lib.repro_panel_paper.argtypes = (
             [ptr, ll, i, ptr, ll, i, ptr, ptr, ll] + [i] * 7 + [ptr])
         lib.repro_panel_paper.restype = i
-        lib.repro_panel_gemm_capacity.argtypes = [i, i]
+        lib.repro_panel_gemm_capacity.argtypes = [i, i, i]
         lib.repro_panel_gemm_capacity.restype = i
+        lib.repro_gemm_ffma_rows.argtypes = []
+        lib.repro_gemm_ffma_rows.restype = i
         lib.repro_panel_t_pitch.argtypes = [i, i]
         lib.repro_panel_t_pitch.restype = i
         lib.repro_gemm_tile_layout.argtypes = [ctypes.POINTER(i)]
@@ -140,16 +143,16 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _gemm_capacity(device: torch.device, code: int):
+def _gemm_capacity(device: torch.device, code: int, ffma: bool = False):
     """Clusters of each split in GEMM_SPLITS (CTAs for split 1) of the gemm
-    apply that the device holds at once, read once per device and dtype
-    (the occupancy calculator: registers, shared memory, cluster
-    placement)."""
+    apply that the device holds at once, read once per device, dtype and
+    form (``ffma``: the FFMA form of short fp32 products; the occupancy
+    calculator: registers, shared memory, cluster placement)."""
     lib = _lib()
     out = []
     with on_device(device):
         for split in GEMM_SPLITS:
-            n = lib.repro_panel_gemm_capacity(split, code)
+            n = lib.repro_panel_gemm_capacity(split, int(ffma), code)
             if n < 0:
                 check_rc(-n, lib, "panel_apply_gemm occupancy")
             out.append(n)
@@ -266,7 +269,7 @@ def diag_block_(D, vtd, *, sigma: int, accum_dtype=None):
     return c, s, T
 
 
-def _apply_cuda(R, vt, T, c, s, sigma, block_w, accum_dtype, paper):
+def _apply_cuda(R, vt, T, c, s, sigma, accum_dtype, paper):
     """Launch a panel apply on views R (..., P, w), vt (..., k, w), in
     place: the paper's (c, s) or the transform GEMM (T, any row pitch)."""
     P, w, k = R.shape[-2], R.shape[-1], vt.shape[-2]
@@ -290,12 +293,12 @@ def _apply_cuda(R, vt, T, c, s, sigma, block_w, accum_dtype, paper):
                              f"{tuple(c.shape)}, {tuple(s.shape)}")
         c = c.to(device=dev, dtype=acc).contiguous()
         s = s.to(device=dev, dtype=acc).contiguous()
-        cw = column_tile(B, w, block_w, sm_count(dev))
+        nw = paper_warps(B, w, k, sm_count(dev), c.element_size())
         with on_device(dev):
             rc = lib.repro_panel_paper(
                 R.data_ptr(), _member_stride(R), _ld(R), vt.data_ptr(),
                 _member_stride(vt), _ld(vt), c.data_ptr(), s.data_ptr(),
-                P * k if R.ndim == 3 else 0, B, w, cw, P, k, sigma, code,
+                P * k if R.ndim == 3 else 0, B, w, nw, P, k, sigma, code,
                 torch.cuda.current_stream(dev).cuda_stream)
     else:
         if T.shape != lead + (P + k, P + k):
@@ -307,7 +310,8 @@ def _apply_cuda(R, vt, T, c, s, sigma, block_w, accum_dtype, paper):
             T = T.to(device=dev, dtype=acc)
         if T.stride(-1) != 1:
             T = T.contiguous()
-        split = gemm_split(B, w, P, k, _gemm_capacity(dev, code))
+        ffma = acc == torch.float32 and P + k <= GEMM_FFMA_ROWS
+        split = gemm_split(B, w, P, k, _gemm_capacity(dev, code, ffma))
         bounds = gemm_pack_bounds(gemm_split_bounds(P, k, P + k, split))
         with on_device(dev):
             rc = lib.repro_panel_gemm(
@@ -355,8 +359,7 @@ def panel_apply_gemm(R, vt, T, *, block_w: int = 512, accum_dtype=None):
     if R.is_cuda:
         R_new = R.clone(memory_format=torch.contiguous_format)
         vt_new = vt.clone(memory_format=torch.contiguous_format)
-        _apply_cuda(R_new, vt_new, T, None, None, 1, block_w, accum_dtype,
-                    False)
+        _apply_cuda(R_new, vt_new, T, None, None, 1, accum_dtype, False)
         return R_new, vt_new
     return _gemm_plain(R, vt, T, accum_dtype)
 
@@ -367,13 +370,16 @@ def panel_apply_paper(R, vt, c, s, *, sigma: int, block_w: int = 512,
     ``(c, s)`` chain over the columns of ``R`` (..., P, w) and ``vt``
     (..., k, w). Zero columns are fixed points. Returns ``(R_new,
     vt_new)`` in the inputs' dtypes; the chain runs in ``accum_dtype``
-    (else the wider of ``R``'s and ``c``'s). One launch on CUDA."""
+    (else the wider of ``R``'s and ``c``'s). One launch on CUDA, a
+    (row, rotation) wavefront in ``apply_rotations``' own operations: its
+    result is the plain version's bit for bit. ``block_w`` is the JAX
+    kernel's grid block; the CUDA kernel's CTAs are its own
+    (``_launch.paper_warps``), and the result depends on neither."""
     _check_block_w(block_w)
     if R.is_cuda:
         R_new = R.clone(memory_format=torch.contiguous_format)
         vt_new = vt.clone(memory_format=torch.contiguous_format)
-        _apply_cuda(R_new, vt_new, None, c, s, sigma, block_w, accum_dtype,
-                    True)
+        _apply_cuda(R_new, vt_new, None, c, s, sigma, accum_dtype, True)
         return R_new, vt_new
     return _paper_plain(R, vt, c, s, sigma, accum_dtype)
 
@@ -382,7 +388,7 @@ def panel_apply_gemm_(R, vt, T, *, block_w: int = 512, accum_dtype=None):
     """``panel_apply_gemm`` in place on views of a padded factor."""
     _check_block_w(block_w)
     if R.is_cuda:
-        _apply_cuda(R, vt, T, None, None, 1, block_w, accum_dtype, False)
+        _apply_cuda(R, vt, T, None, None, 1, accum_dtype, False)
         return
     R_new, vt_new = _gemm_plain(R, vt, T, accum_dtype)
     R.copy_(R_new)
@@ -394,7 +400,7 @@ def panel_apply_paper_(R, vt, c, s, *, sigma: int, block_w: int = 512,
     """``panel_apply_paper`` in place on views of a padded factor."""
     _check_block_w(block_w)
     if R.is_cuda:
-        _apply_cuda(R, vt, None, c, s, sigma, block_w, accum_dtype, True)
+        _apply_cuda(R, vt, None, c, s, sigma, accum_dtype, True)
         return
     R_new, vt_new = _paper_plain(R, vt, c, s, sigma, accum_dtype)
     R.copy_(R_new)

@@ -24,7 +24,11 @@
 // The MMAs of one tile are spread over passes across all 16 tiles, so
 // none waits on the one before it.
 // TF32 alone would break the port's fp32 error budget. f64 runs the FFMA
-// form on DFMA (8 x 8 outputs a thread), for correctness, not speed.
+// form on DFMA (8 x 8 outputs a thread), for correctness, not speed; so
+// does fp32 where the product is short (P + k <= 64, apply<kFfma>): there
+// the split's error (each operand cut to two TF32 parts) is not small
+// against a limit of 4 P units (vt read 16.3 units on a P = 4 draw,
+// PERF.md), and the tensor cores save nothing.
 //
 // * A CTA holds all P + k <= 288 rows of a strip of 64 columns, so in
 //   place no other CTA reads what it writes. Its 9 warps take one block of
@@ -582,11 +586,14 @@ __device__ __forceinline__ void rank_slices(int n_slices, int split,
 
 // out = T[rows_out rows, :] [R; vt] on the strip, K slices [s_lo, s_hi)
 // summed here and, with split > 1, the cluster's ranks' shares added.
-template <typename S, typename A>
+// kFfma: fp32 accumulation in the FFMA form (exact fp32 products, one
+// rounding a multiply-add) in place of 3xTF32, for products too short for
+// the tensor cores to pay (panel_kernels.cu, kFfmaRows).
+template <typename S, typename A, bool kFfma = false>
 __device__ void apply(const Strip<S, A>& st, int s_lo, int s_hi, int split,
                       unsigned char* smem, S* outR, int ldo, S* outV,
                       int ldov, bool vec_out) {
-  if constexpr (sizeof(A) == 4) {
+  if constexpr (sizeof(A) == 4 && !kFfma) {
     MmaAcc acc;
     accumulate_mma(st, s_lo, s_hi, smem, acc);
     if (split == 1) {

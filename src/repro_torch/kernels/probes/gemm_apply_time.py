@@ -12,6 +12,13 @@ products, and shows the code nvcc made for them.
   one ``panel_apply_sharded_cuda`` launch (190 upper tiles), against
   ``torch.bmm`` of the same 190 tile products ``T[:P] @ [L; vt]``.
 
+* The paper's element-wise apply at the cascade's shapes, with the
+  rotations (c, s) of panel 0: the 19 ``panel_apply_paper_`` launches of
+  one update back to back (no PyTorch call computes them), a SHA-256
+  of the factor and V^T after one pass from the same start, beside the
+  plain version's (equal in a checkout whose kernel is bit for bit), and
+  the device time of the widest and the narrowest apply alone.
+
 TF32 is off. For each side three numbers: (a) CUDA events around a loop
 of calls after a warm-up; (b) device time only: the kernels' own time from
 ``torch.profiler`` (``key_averages``), or, where the profiler shows no
@@ -37,8 +44,17 @@ a lookup by a kept value: the launch counter kept by
 timed alone, and the 19 applies' host time per call with it and without
 it, in turns.
 
+Row ``p4``: the gemm apply's error in units of roundoff on the fp32
+downdate draw that ``tests/test_torch_cuda.py`` rebuilds from
+``chip_smoke.py`` (``smoke_p4_draw``: B = 2, P = 4, k = 16, w = 64), R and
+vt, against the 4·P = 16 limit that test holds.
+
+``--only`` takes a subset of the rows (``gemm``, ``paper``, ``sharded``,
+``p4``); the code is shown in every run.
+
 Usage: python3 src/repro_torch/kernels/probes/gemm_apply_time.py
            [--root CHECKOUT] [--repeats N] [--seed N] [--splits]
+           [--only ROW ...]
 """
 from __future__ import annotations
 
@@ -58,6 +74,10 @@ KERNELS = (("panel_kernels", "panel_gemm_kernel"),
            ("panel_kernels", "diag_block_kernel"),
            ("fused_chain", "fused_chain_kernel"),
            ("btd_chain", "btd_"))
+
+
+#: The probe's rows.
+ROWS = ("gemm", "paper", "sharded", "p4")
 
 
 def timed(torch, fn, reps, warmup):
@@ -187,6 +207,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--splits", action="store_true",
                     help="time every cascade apply at K splits 1, 2, 4")
+    ap.add_argument("--only", nargs="+", choices=ROWS, default=ROWS,
+                    help="the rows to run (default all)")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
@@ -243,8 +265,99 @@ def main(argv=None) -> int:
     Lp, vt = Lp.contiguous(), Vp.mT.contiguous()
     _, _, _, T0 = K._diag_block_plain(Lp[0, :P, :P],
                                       vt[0, :, :P].contiguous(), 1, None)
+    starts = range(0, Lp.shape[-1] - P, P)
+
+    if "p4" in args.only:
+        p4_row(torch, K, root, dev)
+    if "paper" in args.only:
+        paper_row(torch, K, Lp, vt, P, starts, args.repeats)
+    if "gemm" in args.only:
+        gemm_row(torch, K, Lp, vt, T0, P, k, starts, args)
+    del L, V, Lp, Vp, vt
+    if "sharded" in args.only:
+        sharded_row(torch, SH, distributed, factor, P, k, args.repeats)
+    return 0
+
+
+def p4_row(torch, K, root, dev):
+    """The gemm apply's units on the rebuilt P = 4 draw (the test's
+    measure: each member's entries over its mean magnitude). The draw
+    comes from this probe's own checkout's tests, the kernel from
+    ``root``'s."""
+    here = Path(__file__).resolve().parents[4]
+    sys.path.insert(0, str(here / "tests"))
+    from test_torch_cuda import smoke_p4_draw
+
+    Bm, V = (torch.from_numpy(x).to(dev) for x in smoke_p4_draw())
+    n, P = Bm.shape[-1], 4
+    A = Bm.mT @ Bm + torch.eye(n, dtype=torch.float64, device=dev)
+    L = torch.linalg.cholesky(A + V @ V.mT).mT.contiguous().float()
+    V = V.float()
+    _, _, _, T = K._diag_block_plain(L[:, :P, :P], V[:, :P].mT.contiguous(),
+                                     -1, None)
+    R, vt = L[:, :P, P:], (0.1 * V[:, P:].mT).float()
+    got = []
+    for x, y in zip(K.panel_apply_gemm(R, vt, T), K._gemm_plain(R, vt, T,
+                                                                 None)):
+        x, y = x.double(), y.double()
+        floor = y.abs().mean(dim=(-2, -1), keepdim=True)
+        got.append(float(((x - y).abs() / (2.0 ** -24 * (y.abs() + floor)))
+                         .max()))
+    print(f"p4 draw (B=2 P=4 k=16 w=64 fp32 downdate), gemm apply of {root}:"
+          f" R {got[0]:.3f} vt {got[1]:.3f} units (limit {4 * P})")
+
+
+def paper_row(torch, K, Lp, vt, P, starts, repeats):
+    """The cascade's 19 paper applies of one update back to back, with
+    panel 0's rotations: events, device time, host time, the output's
+    digest beside the plain version's, and the widest and narrowest apply
+    alone."""
+    _, c0, s0, _ = K._diag_block_plain(Lp[0, :P, :P],
+                                       vt[0, :, :P].contiguous(), 1, None)
     Lw, vtw = Lp[0].clone(), vt[0].clone()
-    starts = range(0, Lw.shape[-1] - P, P)
+
+    def run(apply=K.panel_apply_paper_):
+        for r0 in starts:
+            apply(Lw[r0:r0 + P, r0 + P:], vtw[:, r0 + P:], c0, s0, sigma=1)
+
+    def plain_(R, v, c, s, sigma):
+        out = K._paper_plain(R, v, c, s, sigma, None)
+        R.copy_(out[0])
+        v.copy_(out[1])
+
+    digests = {}
+    for name, apply in (("kernel", K.panel_apply_paper_), ("plain", plain_)):
+        Lw.copy_(Lp[0])
+        vtw.copy_(vt[0])
+        run(apply)
+        torch.cuda.synchronize()
+        digests[name] = hashlib.sha256(
+            Lw.cpu().numpy().tobytes() + vtw.cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+    print(f"paper cascade n={Lp.shape[-1]} P={P} k={vt.shape[-2]} fp32: "
+          f"{len(starts)} panel_apply_paper launches; digest kernel "
+          f"{digests['kernel']}, plain {digests['plain']}, equal "
+          f"{digests['kernel'] == digests['plain']}")
+    for i in range(repeats):
+        print(f"  paper repeat {i}: (a) events {timed(torch, run, 5, 1):.4f}"
+              f" ms")
+    d_ms, how = device_ms(torch, run, reps=5)
+    print(f"  paper: (b) device only {d_ms:.4f} ms ({how}); (c) host per "
+          f"call {host_us(torch, run, len(starts), reps=20):.2f} us")
+    one = []
+    for r0 in (starts[0], starts[-1]):
+        R, v = Lw[r0:r0 + P, r0 + P:], vtw[:, r0 + P:]
+        t_ms, _ = device_ms(torch, lambda: K.panel_apply_paper_(
+            R, v, c0, s0, sigma=1), reps=20)
+        one.append(f"{R.shape[-1]}:{t_ms * 1e3:.2f}")
+    print("  paper per apply alone, width:device us: " + " ".join(one))
+
+
+def gemm_row(torch, K, Lp, vt, T0, P, k, starts, args):
+    """The cascade's 19 gemm applies against torch.matmul."""
+    dev = Lp.device
+    n = Lp.shape[-1]
+    Lw, vtw = Lp[0].clone(), vt[0].clone()
 
     def run_apply():
         for r0 in starts:
@@ -286,9 +399,11 @@ def main(argv=None) -> int:
         print("  cascade per apply, width:split 1/2/4 device us (chosen "
               "split): " + " ".join(rows))
     held_counter_cost(torch, run_apply, len(starts))
-    del L, V, Lp, Vp, vt, Lw, vtw, S
 
-    # The sharded panel phase at n = 5120 on one shard.
+
+def sharded_row(torch, SH, distributed, factor, P, k, repeats):
+    """The sharded panel phase at n = 5120 on one shard against
+    torch.bmm."""
     n = 5120
     L, V = factor(n, k)
     vts = V.mT.contiguous()
@@ -307,8 +422,7 @@ def main(argv=None) -> int:
     report(torch, "sharded",
            lambda: SH.panel_apply_sharded_cuda(L, Ts, Ds, vs, tile_off=0,
                                                panel=P),
-           lambda: torch.bmm(Tcat, Scat), 1, args.repeats)
-    return 0
+           lambda: torch.bmm(Tcat, Scat), 1, repeats)
 
 
 def held_counter_cost(torch, run_apply, calls):

@@ -348,6 +348,206 @@ def test_gemm_tile_layout_is_the_kernels(cuda):
             assert cap[LA.GEMM_SPLITS.index(split)] >= 1
 
 
+def test_gemm_ffma_rows_is_the_kernels(cuda):
+    """The host picks the gemm apply's FFMA form by the kernel's own
+    threshold (the capacity it prices the split with is that form's)."""
+    from repro_torch.kernels import _launch as LA
+
+    assert K._lib().repro_gemm_ffma_rows() == LA.GEMM_FFMA_ROWS
+    for code in (0, 1):
+        cap = K._gemm_capacity(cuda, code, True)
+        assert len(cap) == len(LA.GEMM_SPLITS) and cap[0] >= 1
+
+
+def smoke_p4_draw():
+    """The float64 draws (Bm, V) of ``chip_smoke.py`` phase 2c's case
+    B = 2, P = 4, k = 16, w = 64, gemm, sigma = -1, fp32, as the script
+    made them while phase 2b's shapes P = 37 and P = 100 drew from its
+    shared generator (seed 0): every call before it, in the script's order
+    and shapes. On that draw the 3xTF32 apply read 16.294 units on vt."""
+    import itertools
+
+    rng = np.random.default_rng(0)
+    # The wide block: banded(1, 512, 64, 16).
+    rng.uniform(0.2, 1.0, size=(1, 512, 64, 64))
+    rng.uniform(-1.0, 1.0, size=(1, 511, 64, 64))
+    rng.integers(512, size=(1, 16))
+    rng.normal(size=(1, 128, 16))
+
+    def spd_draw(B, n, k):
+        return rng.uniform(size=(B, n, n)), rng.uniform(size=(B, n, k))
+
+    dts = range(3)
+    for n, _, k, *_ in itertools.product((100, 256), (32, 64), (1, 16),
+                                         (1, -1), ("gemm", "paper"), dts):
+        spd_draw(1, n, k)                                   # phase 2a
+    for _ in itertools.product((1, -1), ("gemm", "paper"), dts):
+        spd_draw(3, 100, 32)
+    for (n, _, k), *_ in itertools.product(((200, 64, 48), (300, 512, 16)),
+                                           (1, -1), dts):
+        spd_draw(1, n, k)
+    for (B, P, k), *_ in itertools.product(
+            ((1, 256, 16), (3, 64, 1), (2, 4, 16), (1, 128, 32),
+             (3, 37, 32), (1, 100, 1)), (1, -1), dts):
+        spd_draw(B, P, k)                                   # phase 2b
+    for (B, P, k, w), apply, sigma, dt in itertools.product(
+            ((1, 256, 16, 512), (3, 64, 1, 100), (2, 4, 16, 64)),
+            ("gemm", "paper"), (1, -1), dts):               # phase 2c
+        drawn = spd_draw(B, P + w, k)
+        if (P, apply, sigma, dt) == (4, "gemm", -1, 0):
+            return drawn
+    raise AssertionError("the case is not in phase 2c")
+
+
+def test_gemm_apply_holds_4p_on_the_p4_draw(cuda):
+    """The draw on which the 3xTF32 apply at P = 4, k = 16 read 16.294
+    units on vt against the 4 P = 16 limit, built as chip_smoke.py
+    builds it (spd_factor on the card in f64, then phase 2c's panel); the
+    units are the smoke's, each member's entries over that member's mean
+    magnitude. The FFMA form (P + k <= 64) holds the limit."""
+    Bm, V = (torch.from_numpy(x).to(cuda) for x in smoke_p4_draw())
+    n, P = Bm.shape[-1], 4
+    A = Bm.mT @ Bm + torch.eye(n, dtype=torch.float64, device=cuda)
+    A = A + V @ V.mT
+    L = torch.linalg.cholesky(A).mT.contiguous().float()
+    V = V.float()
+    D, vtd = L[:, :P, :P], V[:, :P].mT.contiguous()
+    _, c, s, T = K._diag_block_plain(D, vtd, -1, None)
+    R, vt = L[:, :P, P:], (0.1 * V[:, P:].mT).float()
+    out = K.panel_apply_gemm(R, vt, T)
+    ref = K._gemm_plain(R, vt, T, None)
+    for x, y in zip(out, ref):
+        x, y = x.double(), y.double()
+        floor = y.abs().mean(dim=(-2, -1), keepdim=True)
+        err = float(((x - y).abs() / (u_of(torch.float32)
+                                      * (y.abs() + floor))).max())
+        assert bool(torch.isfinite(x).all()) and err <= 4.0 * P
+
+
+PAPER_PK = [(P, k) for P in (1, 4, 37, 100, 256) for k in (1, 5, 16, 32)]
+PAPER_BW = [(1, 1), (3, 33), (1, 100), (3, 4864)]
+
+
+def paper_inputs(B, P, k, w, sigma, dt, acc, dev, seed):
+    """Rotations (c, s) of a diagonal block of a factor (its plain
+    recurrence) and a row panel R, vt of w columns drawn beside it."""
+    L, V = spd(B, P + 8, k, dt, sigma, dev, seed=seed)
+    _, c, s, _ = K._diag_block_plain(L[:, :P, :P],
+                                     V[:, :P].mT.contiguous(), sigma, acc)
+    rng = np.random.default_rng(seed + 1)
+    R = torch.from_numpy(rng.uniform(-1, 1, size=(B, P, w))).to(dev, dt)
+    vt = torch.from_numpy(rng.uniform(size=(B, k, w))).to(dev, dt)
+    return R, vt, c, s
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("sigma", [1, -1])
+@pytest.mark.parametrize("P,k", PAPER_PK)
+def test_paper_apply_equals_plain_bit_for_bit(cuda, P, k, sigma, dtype):
+    """The wavefront takes every rotation in apply_rotations' own
+    operations, in its order for each element: R and vt are the plain
+    version's, bit for bit, in one launch. Each (P, k) takes one of the
+    (B, w) shapes, in turn."""
+    dt, acc = DTYPES[dtype]
+    i = PAPER_PK.index((P, k))
+    B, w = PAPER_BW[(i + i // 4) % len(PAPER_BW)]
+    R, vt, c, s = paper_inputs(B, P, k, w, sigma, dt, acc, cuda, seed=i)
+    before = K.LAUNCHES["panel_apply_paper"].count
+    out = K.panel_apply_paper(R, vt, c, s, sigma=sigma, accum_dtype=acc)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["panel_apply_paper"].count == before + 1
+    ref = K._paper_plain(R, vt, c, s, sigma, acc)
+    for x, y in zip(out, ref):
+        assert x.dtype == dt and x.shape == y.shape
+        assert bool(torch.isfinite(x).all())
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_paper_apply_redoes_flagged_windows_exactly(cuda, k):
+    """Divisions the fast path flags (quotients past 2^60 or under 2^-60
+    on some columns and rows, a divisor past 2^30): the warp redoes its
+    window with IEEE divisions, and R and vt are still the plain
+    version's, bit for bit."""
+    R, vt, c, s = paper_inputs(1, 256, k, 300, 1, torch.float32, None, cuda,
+                               seed=71)
+    R[:, :, ::7] *= 1e19
+    R[:, 5::11] *= 1e-20
+    c = c.clone()
+    c[0, 3, k - 1] = 1.2e9
+    out = K.panel_apply_paper(R, vt, c, s, sigma=1)
+    ref = K._paper_plain(R, vt, c, s, 1, None)
+    for x, y in zip(out, ref):
+        assert bool(torch.isfinite(y).all())
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,P,k,w", [(1, 256, 16, 4864), (3, 100, 5, 33),
+                                     (3, 37, 32, 100), (1, 4, 1, 1)])
+def test_paper_apply_in_place_on_pitched_views_equals_plain(cuda, B, P, k,
+                                                            w, dtype):
+    """``panel_apply_paper_`` on views of padded buffers (row pitch past w,
+    a column offset, member strides): the plain version's values, bit for
+    bit, and nothing outside the views written."""
+    dt, acc = DTYPES[dtype]
+    R, vt, c, s = paper_inputs(B, P, k, w, -1, dt, acc, cuda, seed=w + k)
+    Rbuf = torch.full((B, P + 3, w + 41), 7.0, dtype=dt, device=cuda)
+    vbuf = torch.full((B, k + 2, w + 19), 7.0, dtype=dt, device=cuda)
+    Rv, vv = Rbuf[:, 2:2 + P, 5:5 + w], vbuf[:, 1:1 + k, 3:3 + w]
+    Rv.copy_(R)
+    vv.copy_(vt)
+    K.panel_apply_paper_(Rv, vv, c, s, sigma=-1, accum_dtype=acc)
+    ref = K._paper_plain(R, vt, c, s, -1, acc)
+    assert torch.equal(Rv, ref[0]) and torch.equal(vv, ref[1])
+    Rv.fill_(7.0)
+    vv.fill_(7.0)
+    assert bool((Rbuf == 7.0).all()) and bool((vbuf == 7.0).all())
+
+
+@pytest.mark.parametrize("precision", [None, "bf16"])
+def test_paper_cascade_splits_k33_into_rank_groups(cuda, precision):
+    """k = 33 takes the paper apply through the pallas cascade as two rank
+    groups (32 and 1 rotations): per panel two diagonal passes and two
+    applies, each equal to its plain version, so the factor is that of
+    the same cascade on the card with the plain versions as its hooks,
+    bit for bit."""
+    from repro_torch.core.precision import Precision
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._launch import kernel_panel
+
+    n, k, P = 300, 33, 64
+    L, V = spd(1, n, k, torch.float32, -1, cuda, seed=33)
+    d0 = K.LAUNCHES["panel_apply_paper"].count
+    out = ops.chol_update_pallas(L[0], V[0], sigma=-1, panel=P,
+                                 strategy="paper", precision=precision)
+    torch.cuda.synchronize()
+    n_panels = -(-n // P)
+    assert K.LAUNCHES["panel_apply_paper"].count - d0 == 2 * (n_panels - 1)
+    prec = Precision.parse(precision)
+    acc = None if prec is None else prec.accum
+
+    def diag_fn(D, vtd, sig):
+        D_new, c, s, T = K._diag_block_plain(D, vtd, sig, acc)
+        D.copy_(D_new)
+        vtd.zero_()
+        return D, c, s, T
+
+    def apply_fn(R, vt, c, s, T, sig):
+        R_new, vt_new = K._paper_plain(R, vt, c, s, sig, acc)
+        R.copy_(R_new)
+        vt.copy_(vt_new)
+        return R, vt
+
+    ref, Vp, _ = blocked._pad_to_panels(L[0], V[0], P)
+    for g in rank_groups(k):
+        ref = blocked.chol_update_blocked(
+            ref, Vp[:, g], sigma=-1, panel=kernel_panel(P), strategy="gemm",
+            apply_fn=apply_fn, diag_fn=diag_fn, precision=prec)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, ref[:n, :n])
+
+
 def chain_units(x, y, unit):
     """Largest error of a block chain's ``(diag, off)`` against another's,
     in units of roundoff (``units``; upper triangles of the diag blocks)."""

@@ -189,7 +189,7 @@ def test_cpu_wrappers_count_no_launch_and_cuda_wrappers_check_first():
                            False)
     with pytest.raises(ValueError, match="CUDA tensors"):
         K._apply_cuda(torch.zeros(8, 4), torch.zeros(2, 4),
-                      torch.eye(10), None, None, 1, 512, None, False)
+                      torch.eye(10), None, None, 1, None, False)
     with pytest.raises(ValueError, match="block_w"):
         K.panel_apply_gemm(torch.zeros(8, 4), torch.zeros(2, 4),
                            torch.eye(10), block_w=0)
@@ -325,15 +325,26 @@ def test_rank_groups_cover_k_in_groups_of_at_most_32(k, sizes):
         _launch.rank_groups(0)
 
 
-@pytest.mark.parametrize("batch,w,block_w,sms,tile", [
-    (1, 4864, 512, 132, 32),    # n = 5000, panel 0: 152 CTAs
-    (64, 768, 512, 132, 256),   # the B = 64 fleet fills the card at 256
-    (1, 100, 64, 132, 32),
-    (8, 10000, 512, 132, 512),
-    (1, 100, 20, 132, 32),      # block_w under 32 rounds up to one warp
+@pytest.mark.parametrize("batch,w,k,sms,itemsize,nw", [
+    (1, 4864, 16, 132, 4, 4),    # n = 5000, panel 0: 608 CTAs, 5 an SM
+    (1, 4096, 16, 132, 4, 16),   # 128 CTAs of 16 warps, one an SM
+    (1, 256, 16, 132, 4, 4),     # the narrow tail: the tick's latency
+    (64, 768, 16, 132, 4, 16),   # the B = 64 fleet: fewer CTAs stage
+    (1, 4864, 1, 132, 8, 4),     # f64 at k = 1: the row ring caps nw
+    (1, 1, 32, 132, 4, 4),
 ])
-def test_column_tile(batch, w, block_w, sms, tile):
-    assert _launch.column_tile(batch, w, block_w, sms) == tile
+def test_paper_warps(batch, w, k, sms, itemsize, nw):
+    got = _launch.paper_warps(batch, w, k, sms, itemsize)
+    assert got == nw and got in _launch.PAPER_WARPS
+    assert _launch.paper_smem(k, got, itemsize) <= _launch.PAPER_SMEM_CAP
+
+
+@pytest.mark.parametrize("k,lanes", [(1, 1), (2, 8), (8, 8), (9, 16),
+                                     (16, 16), (17, 32), (32, 32)])
+def test_paper_lanes_are_the_kernels_buckets(k, lanes):
+    assert _launch.paper_lanes(k) == lanes
+    with pytest.raises(ValueError):
+        _launch.paper_lanes(33)
 
 
 def test_launch_count_of_the_cuda_routes():
