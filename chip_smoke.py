@@ -18,7 +18,15 @@ user calls, and holds every kernel against its plain torch version:
   mesh=)``: a chain phase of diagonal-block kernels, then one panel-phase
   kernel per shard) on one rank at n = 5120 and on a B = 64 fleet, and on
   four ranks sharing the card (spawned processes, gloo), whose gathered
-  results are held against the one-rank results.
+  results are held against the one-rank results;
+* the stream stack (``StreamService`` -> ``FactorStore`` -> CUDA graphs of
+  the fused and block chains): a dense n = 1024 fleet (fp32 and bf16) and a
+  structured B = 64, b = 16, nb = 512 fleet over the ladder (64, 128),
+  warmed, then served inside the retrace guard with a checkpoint and a
+  restore in the same process; replays held bit for bit to the eager
+  calls, the restored fleet to the live one, every member to the float64
+  matrix it should hold; the Chrome trace written to
+  ``chiprun_out/stream_trace.json``.
 
 Builds every kernel from the sources in ``src/repro_torch/kernels/csrc``,
 checks the launches each path takes (counts set to 0 just before a path
@@ -32,6 +40,7 @@ Usage: python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import os
@@ -408,6 +417,550 @@ def banded_ab(np, Jd, Jo):
     i, j = t * b + rr, (t + 1) * b + cc
     ab[u + i - j, j] = Jo[:, rr, cc]
     return ab
+
+
+# -- the stream phase (path 3i) -----------------------------------------------
+#
+# The port's serving stack on the card: StreamService.push / tick / flush ->
+# FactorStore.apply -> a CUDA graph per (step, rung, width) -> CholFactor
+# update / guarded downdate -> the fused_chain kernel (dense fleets) or the
+# btd_chain kernel (structured fleets).
+
+#: (name, structure, precision, n, block, ticks, window, checkpoint tick,
+#: promote tick, decay tick, evict tick, infeasible tick) of each run.
+STREAM_RUNS = (
+    ("dense fp32", "dense", None, 1024, None, 72, 32, 40, 21, 30, 33, 46),
+    ("dense bf16", "dense", "bf16", 1024, None, 72, 32, 40, 21, 30, 33, 46),
+    ("structured fp32", "blocktridiag", None, 8192, 16, 36, 16, 24, 13, 17,
+     19, 26),
+)
+STREAM_WIDTH, STREAM_LADDER, STREAM_PANEL, STREAM_DEADLINE = 16, (64, 128), \
+    256, 4
+
+
+class StreamShadow:
+    """The float64 statistics each fleet member should hold, fed with what
+    the store consumed (the blocks ``apply`` staged, its verdicts, decay,
+    admissions), and the budget of its relative ``modify_error``: each
+    mutation of a member may add ``per_mut`` times the largest entry of the
+    member's matrix after it (PERF.md §6, the stream limit)."""
+
+    def __init__(self, torch, store, per_mut, round_bf16):
+        self.torch, self.store = torch, store
+        self.per_mut, self.round_bf16 = per_mut, round_bf16
+        top, n, dev = store.ladder[-1], store.n, store.device
+        kw = dict(dtype=torch.float64, device=dev)
+        if store.structure == "blocktridiag":
+            b = store.block
+            nb = n // b
+            self.A = [torch.zeros(top, nb, b, b, **kw),
+                      torch.zeros(top, nb - 1, b, b, **kw)]
+        else:
+            self.A = [torch.zeros(top, n, n, **kw)]
+        self.budget = torch.zeros(top, **kw)
+
+    def maxabs(self, cap):
+        return self.torch.stack(
+            [a[:cap].abs().flatten(1).amax(dim=1) for a in self.A]).amax(0)
+
+    def admit(self, s, scale=1.0):
+        for a in self.A:
+            a[s].zero_()
+        self.A[0][s].diagonal(dim1=-2, dim2=-1).fill_(scale)
+        self.budget[s] = 0.0
+
+    def modify(self, V, sign, mask):
+        torch = self.torch
+        cap = V.shape[0]
+        V = torch.from_numpy(V).to(self.store.device)
+        if self.round_bf16:
+            V = V.bfloat16()  # the engine casts V to the storage dtype
+        V = V.double()
+        touched = (V != 0).flatten(1).any(dim=1) & mask
+        m = (sign * mask.double())[:, None, None]
+        if self.store.structure == "blocktridiag":
+            b = self.store.block
+            Vb = V.reshape(cap, V.shape[1] // b, b, V.shape[-1])
+            self.A[0][:cap] += m[..., None] * (Vb @ Vb.mT)
+            self.A[1][:cap] += m[..., None] * (Vb[:, :-1] @ Vb[:, 1:].mT)
+        else:
+            self.A[0][:cap] += m * (V @ V.mT)
+        self.budget[:cap] += touched.double() * self.per_mut * \
+            self.maxabs(cap)
+
+    def scale(self, alpha, active):
+        for a in self.A:
+            a.mul_(float(alpha) ** 2)
+        cap = active.shape[0]
+        self.budget[:cap] += active.double() * self.per_mut * \
+            self.maxabs(cap)
+
+    def errors(self, slots):
+        """Per member in ``slots``: relative modify_error of the fleet's
+        factor, its limit, and the factor's distance from the float64
+        Cholesky of the member's matrix (relative to its largest entry)."""
+        torch, store = self.torch, self.store
+        idx = torch.as_tensor(slots, device=store.device)
+        den = self.maxabs(store.capacity)[idx]
+        data = store.factor.data
+        if store.structure == "blocktridiag":
+            from repro_torch.core.structure import BlockTriDiagStorage
+
+            S = BlockTriDiagStorage(data.diag[idx], data.off[idx]).astype(
+                torch.float64)
+            ad, ao = S.matrix_blocks()
+            Ad, Ao = self.A[0][idx], self.A[1][idx]
+            num = torch.maximum((ad - Ad).abs().flatten(1).amax(1),
+                                (ao - Ao).abs().flatten(1).amax(1))
+            ref = BlockTriDiagStorage.from_matrix_blocks(Ad, Ao)
+            dist = torch.maximum(
+                (S.diag - ref.diag).abs().flatten(1).amax(1),
+                (S.off - ref.off).abs().flatten(1).amax(1)) / \
+                ref.diag.abs().flatten(1).amax(1)
+        else:
+            L = data[idx].double()
+            A = self.A[0][idx]
+            num = (L.mT @ L - A).abs().flatten(1).amax(1)
+            ref = torch.linalg.cholesky(A).mT
+            dist = (L - ref).abs().flatten(1).amax(1) / \
+                ref.abs().flatten(1).amax(1)
+        return num / den, self.budget[idx] / den, dist
+
+
+def _launch_counts():
+    """Every kernel wrapper's ``LAUNCHES`` count, by kernel name."""
+    from repro_torch.kernels import blocktridiag as BT
+    from repro_torch.kernels import cholupdate as K
+    from repro_torch.kernels import fused as F
+    from repro_torch.kernels import sharded as SH
+
+    counters = {"fused_chain": F.LAUNCHES, "btd_chain": BT.LAUNCHES,
+                "panel_apply_sharded": SH.LAUNCHES, **K.LAUNCHES}
+    return {name: c.count for name, c in counters.items()}
+
+
+def _counts_minus(a, *bs):
+    return {k: v - sum(b[k] for b in bs) for k, v in a.items()}
+
+
+def _stream_run(torch, np, dev, seed, run, ckpt_dir):
+    """One fleet through the stream stack: warmup, then (inside
+    ``assert_no_retrace``) admissions, one rank-1 row a user a tick,
+    deadline flushes, window downdates, a rung crossing, decay, evictions
+    and readmissions, a single-row flush (the width-1 bucket) and one
+    infeasible downdate; a checkpoint, a restore in the same process (the
+    restored store's own warmup) and the rest of the traffic fed to both.
+    Returns a dict of results; every failed check is recorded by ``check``.
+    ``path_launches``: the launches of the served traffic alone (every
+    flush of both services), from the end of the warmup to the end of the
+    traffic, less the restore's warmup and the eager comparisons.
+    """
+    from repro_torch.core import CholFactor
+    from repro_torch.stream import (FactorStore, StreamService,
+                                    assert_no_retrace, checkpoint_service,
+                                    mutations_issued, restore_service)
+
+    (name, structure, prec, n, b, T, window, t_ck, t_promote, t_decay,
+     t_evict, t_bad) = run
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rng = np.random.default_rng([seed, STREAM_RUNS.index(run)])
+    kw = dict(capacity=STREAM_LADDER[0], ladder=STREAM_LADDER,
+              width=STREAM_WIDTH, widths=(1, STREAM_WIDTH),
+              panel=STREAM_PANEL, precision=prec, device=dev)
+    if structure == "blocktridiag":
+        kw.update(structure="blocktridiag", block=b)
+    mem = (lambda: torch.cuda.memory_reserved() / 1e9) if cuda else \
+        (lambda: 0.0)
+    if cuda:
+        torch.cuda.empty_cache()
+    before = mem()
+    store = FactorStore(n, **kw)
+    out = {"name": name}
+    t0 = time.perf_counter()
+    rep = store.warmup()
+    sync()
+    out["warmup_s"] = time.perf_counter() - t0
+    out["graphs"] = rep.graphs
+    out["steps"] = rep.compiled
+    out["reserved_gb"] = mem()
+    out["store_gb"] = mem() - before
+
+    eps32 = float(torch.finfo(torch.float32).eps)
+    bf16 = prec == "bf16"
+    per_mut = n * eps32 + (float(torch.finfo(torch.bfloat16).eps)
+                           if bf16 else 0.0)
+    shadow = StreamShadow(torch, store, per_mut, bf16)
+    chain = "btd_chain" if structure == "blocktridiag" else "fused_chain"
+    leaves = (lambda x: [x.diag, x.off]
+              if structure == "blocktridiag" else [x])
+    stats = {"flushes": 0, "launches": 0, "want": 0, "mutations": 0,
+             "budget_ok": True, "eager": [], "kinds": set(),
+             "widths": set(), "rejects": 0,
+             "aside": {k: 0 for k in _launch_counts()}}
+
+    def counted(target):
+        """Wrap ``target.apply``: each flush's launches and mutations
+        against its budget (ceil(w/32) fused_chain launches a dense sign
+        block, 1 btd_chain launch a structured one; one mutation a sign
+        block); on the live store also the shadow's sums and, for the
+        first flush of each kind and the rejected downdate, the eager
+        comparison (its launches set aside: not the served path's)."""
+        orig_apply = target.apply
+        live = target is store
+
+        def apply(Vup=None, Vdn=None):
+            kind = ("both" if Vup is not None and Vdn is not None else
+                    "up" if Vup is not None else "down")
+            cap = store.capacity
+            blocks = [V for V in (Vup, Vdn) if V is not None]
+            bad_flush = Vdn is not None and bool((np.abs(Vdn) > 5.0).any())
+            compare = live and (kind not in stats["kinds"] or bad_flush)
+            if compare:
+                d = store.factor.data
+                pre = (type(d)(d.diag.clone(), d.off.clone())
+                       if structure == "blocktridiag" else d.clone())
+            sync()
+            c0, m0 = _launch_counts(), mutations_issued()
+            ok = orig_apply(Vup, Vdn)
+            sync()
+            got = _counts_minus(_launch_counts(), c0)
+            muts = mutations_issued() - m0
+            want = sum(1 if structure == "blocktridiag" else
+                       -(-V.shape[-1] // 32) for V in blocks)
+            stats["flushes"] += 1
+            stats["launches"] += got[chain]
+            stats["want"] += want
+            stats["mutations"] += muts
+            stats["budget_ok"] &= (got[chain] == sum(got.values()) == want
+                                   and muts == len(blocks))
+            if not live:
+                return ok
+            stats["kinds"].add(kind)
+            stats["widths"].update((kind, V.shape[-1]) for V in blocks)
+            everyone = torch.ones(cap, dtype=torch.bool, device=dev)
+            if Vup is not None:
+                shadow.modify(Vup, 1.0, everyone)
+            if Vdn is not None:
+                shadow.modify(Vdn, -1.0, ok)
+                stats["rejects"] += int((~ok).sum())
+            if compare:
+                c0 = _launch_counts()
+                f = CholFactor(pre, **store._meta)
+                if Vup is not None:
+                    f = f.update(torch.from_numpy(Vup).to(dev))
+                ok_e = None
+                if Vdn is not None:
+                    f, ok_e = f.downdate_guarded(
+                        torch.from_numpy(Vdn).to(dev))
+                sync()
+                for k, v in _counts_minus(_launch_counts(), c0).items():
+                    stats["aside"][k] += v
+                same = all(torch.equal(x, y) for x, y in
+                           zip(leaves(store.factor.data), leaves(f.data)))
+                same_ok = ok is None or torch.equal(ok, ok_e)
+                stats["eager"].append(
+                    (kind, tuple(V.shape[-1] for V in blocks),
+                     same and same_ok,
+                     None if ok is None else int((~ok).sum())))
+            return ok
+
+        target.apply = apply
+
+    counted(store)
+
+    def row():
+        v = 0.3 * rng.standard_normal(n)
+        if structure == "blocktridiag":
+            j = int(rng.integers(0, n // b - 1))
+            mask = np.zeros(n)
+            mask[j * b:(j + 2) * b] = 1.0
+            v = v * mask
+        return v.astype(np.float32)
+
+    users = [f"u{i}" for i in range(STREAM_LADDER[0])]
+    extra = f"u{STREAM_LADDER[0]}"
+    sparse, main = users[:3], users[3:]   # sparse: one row, at tick 0
+    evicted = main[8:12]
+    svcs = []
+    reports = []
+
+    def admit(u):
+        for s in svcs:
+            s.admit(u)
+        shadow.admit(store.slot(u))
+
+    def step(t):
+        """One tick of traffic, fed to every service alike."""
+        live = svcs[0]
+        if t == t_promote:
+            admit(extra)
+        if t == t_decay:
+            active = torch.zeros(store.capacity, dtype=torch.bool,
+                                 device=dev)
+            active[[store.slot(u) for u in store.users()]] = True
+            for s in svcs:
+                s.decay(0.999)
+            shadow.scale(0.999, active)
+        if t == t_evict:
+            for u in evicted:
+                for s in svcs:
+                    s.evict(u)
+                admit(u)
+        pushers = sparse if t == 0 else (
+            main + ([extra] if t >= t_promote else []) if t >= 5 else [])
+        for u in pushers:
+            v = row()
+            for s in svcs:
+                r = s.push(u, v)
+                if s is live and r is not None:
+                    reports.append(r)
+        if t == t_bad:
+            v = 30.0 * row()
+            for s in svcs:
+                s.push(main[5], v, sign=-1)
+        for s in svcs:
+            r = s.tick()
+            if s is live and r is not None:
+                reports.append(r)
+
+    svc = StreamService(store, window=window, deadline=STREAM_DEADLINE)
+    svcs.append(svc)
+    traces = 0
+    sync()
+    start = _launch_counts()
+    with assert_no_retrace(f"{name}: serving before the checkpoint") as w:
+        for u in users:
+            admit(u)
+        for t in range(t_ck):
+            step(t)
+        checkpoint_service(svc, ckpt_dir, step=t_ck)
+    traces += w.traces
+    sync()
+    c0, t0 = _launch_counts(), time.perf_counter()
+    survivor = restore_service(ckpt_dir, warm=True, device=dev)
+    sync()
+    out["restore_s"] = time.perf_counter() - t0
+    restore = _counts_minus(_launch_counts(), c0)  # its warmup's eager runs
+    out["restore_graphs"] = survivor.store.steps.graphs
+    counted(survivor.store)
+    svcs.append(survivor)
+    same_meta = (survivor.store.slot_to_user == store.slot_to_user
+                 and survivor.tick_count == svc.tick_count)
+    with assert_no_retrace(f"{name}: serving after the restore") as w:
+        for t in range(t_ck, T):
+            step(t)
+        for s in svcs:
+            r = s.flush(force=True)
+            if s is svc:
+                reports.append(r)
+    traces += w.traces
+    sync()
+    path = _counts_minus(_launch_counts(), start, restore, stats["aside"])
+    restored_equal = same_meta and all(
+        torch.equal(x, y) for x, y in zip(leaves(store.factor.data),
+                                          leaves(survivor.store.factor.data)))
+    slots = sorted(store.slot(u) for u in store.users())
+    rel, lim, dist = shadow.errors(slots)
+    out.update(
+        traces=traces, flushes=stats["flushes"], launches=stats["launches"],
+        want=stats["want"], path_launches=path,
+        mutations=stats["mutations"],
+        budget_ok=(stats["budget_ok"] and path[chain] == sum(path.values())
+                   == stats["launches"] == stats["want"]),
+        eager=stats["eager"], widths=sorted(stats["widths"]),
+        rejects=stats["rejects"], restored_equal=restored_equal,
+        rel_err=float(rel.max()), rel_limit_min=float(lim.min()),
+        within=bool((rel <= lim).all()), dist=float(dist.max()),
+        capacity=store.capacity, cold=store.steps.cold_dispatches
+        + survivor.store.steps.cold_dispatches,
+        finite=all(bool(torch.isfinite(x).all())
+                   for x in leaves(store.factor.data)),
+        reasons=sorted({r.reason for r in reports}))
+    out["store"], out["svc"], out["survivor"] = store, svc, survivor
+    return out
+
+
+def _profiled_ms(torch, fn, reps):
+    """Device milliseconds a call, the kernels' times summed by
+    ``torch.profiler`` (graph replays included), or None when the profiler
+    shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum((getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def stream_timings(torch, np, store, reps=20):
+    """Times on the card of the dense fp32 store's ``both`` step at rung
+    128, widths (16, 16): the graph replay against the eager call of the
+    same step (event loop: host clock to a synchronise; stream: CUDA events
+    around the call, which include the stream's idle time while the host
+    takes the verdict; device: kernels summed by ``torch.profiler``); the
+    host's ``pad_block`` and host-to-device copy of the two blocks; one
+    copy of the fleet's size (each step writes its result back)."""
+    rng = np.random.default_rng(1)
+    cap, n, w = store.capacity, store.n, STREAM_WIDTH
+    ups = {s: (0.3 * rng.standard_normal((4, n))).astype(np.float32)
+           for s in range(cap)}
+    dns = {s: (0.01 * x) for s, x in ups.items()}
+    out = {}
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        Vup, Vdn = store.pad_block(ups), store.pad_block(dns)
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["pad_block_ms"] = float(np.percentile(host, 50))
+    copy = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store._stage("up", Vup)
+        store._stage("dn", Vdn)
+        torch.cuda.synchronize()
+        copy.append((time.perf_counter() - t0) * 1e3)
+    out["h2d_ms"] = float(np.percentile(copy, 50))
+    key = store.steps.key("both", cap, (w, w))
+    entry = store.steps.entries[key]
+    calls = {"replay": lambda: store.steps.call("both", cap, (w, w)),
+             "eager": lambda: entry.run(store._base, eager=True)}
+    for what, fn in calls.items():
+        loop, stream = [], []
+        fn()
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            loop.append((time.perf_counter() - t0) * 1e3)
+            stream.append(e0.elapsed_time(e1))
+        out[what] = {"loop_p50": float(np.percentile(loop, 50)),
+                     "loop_p90": float(np.percentile(loop, 90)),
+                     "stream_p50": float(np.percentile(stream, 50)),
+                     "stream_p90": float(np.percentile(stream, 90)),
+                     "device_ms": _profiled_ms(torch, fn, 5)}
+    fleet = store.factor.data
+    tmp = fleet.clone()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(reps):
+        fleet.copy_(tmp)
+    e1.record()
+    torch.cuda.synchronize()
+    out["copy_ms"] = e0.elapsed_time(e1) / reps
+    out["fleet_gb"] = fleet.numel() * fleet.element_size() / 1e9
+    return out
+
+
+def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
+    """Path 3i: each run of ``STREAM_RUNS``, its checks, and the timings of
+    the dense fp32 store (``card``: the card's name and power limit, printed
+    beside them). Returns the runs' results and the timings."""
+    from repro_torch.obs import tracing
+
+    tracing.RECORDER.clear()
+    results, timings = [], None
+    for run in STREAM_RUNS:
+        res = _stream_run(torch, np, dev, seed, run,
+                          os.path.join(work_dir, run[0].replace(" ", "_")))
+        results.append(res)
+        eager_ok = len(res["eager"]) >= 4 and all(e[2] for e in res["eager"])
+        kinds = {k for k, _ in res["widths"]}
+        print(f"stream {res['name']}: warmup {res['warmup_s']:.2f} s, "
+              f"{res['graphs']} graphs for {res['steps']} steps, "
+              f"memory_reserved after warmup {res['reserved_gb']:.3f} GB "
+              f"({res['store_gb']:.3f} GB for this store: its fleet, "
+              f"static inputs and graph pool); restore "
+              f"{res['restore_s']:.2f} s ({res['restore_graphs']} graphs); "
+              f"{res['flushes']} flushes ({', '.join(res['reasons'])}), "
+              f"widths {res['widths']}, guard rejects {res['rejects']}, "
+              f"capacity {res['capacity']}")
+        print(f"  check 1 retraces after warmup {res['traces']} (cold "
+              f"dispatches {res['cold']})  "
+              f"{'ok' if res['traces'] == 0 else 'FAIL'}")
+        print(f"  check 2 replay == eager (torch.equal, fleet and "
+              f"verdicts) on {len(res['eager'])} flushes "
+              f"{[(k, w, r) for k, w, _, r in res['eager']]}  "
+              f"{'ok' if eager_ok else 'FAIL'}")
+        print(f"  check 3 restored fleet == live fleet (torch.equal)  "
+              f"{'ok' if res['restored_equal'] else 'FAIL'}")
+        print(f"  check 4 relative modify_error worst member "
+              f"{res['rel_err']:.3e} (its derived limit, smallest over "
+              f"members: {res['rel_limit_min']:.3e}); factor vs f64 "
+              f"Cholesky {res['dist']:.3e}  "
+              f"{'ok' if res['within'] and res['finite'] else 'FAIL'}")
+        served = {k: v for k, v in res["path_launches"].items() if v}
+        print(f"  check 5 flush launches {res['launches']} (budget "
+              f"{res['want']}: ceil(w/32) fused_chain a dense sign block, 1 "
+              f"btd_chain a structured one), mutations {res['mutations']} "
+              f"(one a sign block) over {res['flushes']} flushes of both "
+              f"services; served path, warmups and eager comparisons "
+              f"excluded: {served}  {'ok' if res['budget_ok'] else 'FAIL'}")
+        check(res["traces"] == 0 and res["cold"] == 0,
+              f"stream {res['name']}: a step was built after warmup")
+        check(eager_ok, f"stream {res['name']}: a replay differs from the "
+              "eager step")
+        check(res["restored_equal"], f"stream {res['name']}: the restored "
+              "fleet differs from the live one")
+        check(res["within"] and res["finite"], f"stream {res['name']}: a "
+              "member's modify_error is above its derived limit")
+        check(res["budget_ok"] and res["launches"] > 0,
+              f"stream {res['name']}: launches or mutations off budget")
+        check(kinds == {"up", "down", "both"} and ("up", 1) in res["widths"]
+              and res["rejects"] >= 1 and res["capacity"] == 128
+              and (res["graphs"] > 0 or dev.type != "cuda"),
+              f"stream {res['name']}: the sequence missed a step kind, the "
+              "width-1 bucket, the rejected downdate or the rung crossing")
+        if dev.type == "cuda" and res["name"] == "dense fp32":
+            timings = stream_timings(torch, np, res["store"])
+        for key in ("store", "svc", "survivor"):
+            res.pop(key, None)
+        gc.collect()  # the spy closes a cycle over the store and its graphs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if timings:
+        t = timings
+        print(f"stream timing on {card} (dense fp32, rung 128, both 16+16): "
+              f"replay "
+              f"event loop p50 {t['replay']['loop_p50']:.3f} / p90 "
+              f"{t['replay']['loop_p90']:.3f} ms, stream p50 "
+              f"{t['replay']['stream_p50']:.3f} / p90 "
+              f"{t['replay']['stream_p90']:.3f} ms, device "
+              f"{t['replay']['device_ms']} ms; eager event loop p50 "
+              f"{t['eager']['loop_p50']:.3f} / p90 "
+              f"{t['eager']['loop_p90']:.3f} ms, stream p50 "
+              f"{t['eager']['stream_p50']:.3f} / p90 "
+              f"{t['eager']['stream_p90']:.3f} ms, device "
+              f"{t['eager']['device_ms']} ms")
+        print(f"stream timing: pad_block {t['pad_block_ms']:.3f} ms, "
+              f"host-to-device copy of both blocks {t['h2d_ms']:.3f} ms, "
+              f"one fleet-size copy ({t['fleet_gb']:.3f} GB) "
+              f"{t['copy_ms']:.3f} ms")
+    events = tracing.chrome_trace()["traceEvents"]
+    names = sorted({e["name"] for e in events})
+    if trace_path:
+        tracing.export_chrome_trace(trace_path)
+    print(f"stream trace: {len(events)} events {names}"
+          + (f", written to {trace_path}" if trace_path else ""))
+    check({"stream.flush", "stream.warmup", "stream.checkpoint",
+           "stream.restore"} <= set(names),
+          "stream: a span is missing from the trace")
+    return results, timings
 
 
 def main(argv=None) -> int:
@@ -1203,6 +1756,38 @@ def main(argv=None) -> int:
         check(err <= lim and ok_c and bool(torch.isfinite(res4[name]).all()),
               f"four ranks disagree with one rank ({name})")
     del res4
+
+    # 3i. the stream stack: StreamService -> FactorStore -> CUDA graphs of
+    # the fused chain (dense fleets, fp32 and bf16) and the block chain (a
+    # structured fleet), with its five checks and the timings of the dense
+    # fp32 store (stream_phase, STREAM_RUNS).
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    stream_dir = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    trace_path = os.path.join(HERE, "chiprun_out", "stream_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    try:
+        runs, _ = stream_phase(torch, np, dev, args.seed, stream_dir,
+                               trace_path, card)
+    finally:
+        shutil.rmtree(stream_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    # The served traffic's own launches (each run's window: warmups, the
+    # eager comparisons and the timings left out).
+    got = {name: sum(r["path_launches"][name] for r in runs)
+           for name in counters}
+    add_path(got)
+    want = {"fused_chain": sum(r["want"] for r in runs
+                               if r["name"].startswith("dense")),
+            "btd_chain": sum(r["want"] for r in runs
+                             if r["name"].startswith("structured"))}
+    print(f"path stream: served launches {got} (flush budget {want}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(all(got[k] == v > 0 for k, v in want.items())
+          and sum(got.values()) == sum(want.values()),
+          "the stream path's launches are off the flushes' budget")
+    torch.cuda.empty_cache()
 
     # -- kernel vs plain at the main paths' shapes (not counted) --------------
     # The fused chain: the downdate first, so that Lp, vt are the update's

@@ -32,6 +32,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core import api, backends
+from repro_torch.core import solve as _solve
 from repro_torch.core import distributed as _distributed
 from repro_torch.core import structure as _structure
 from repro_torch.core.precision import Precision
@@ -180,7 +181,12 @@ class CholFactor:
 
         ``factor'`` is the downdated factor where ``A - V V^T`` stays PD and
         the unchanged factor where it does not (``ok`` says which, per
-        fleet member). Both branches are computed.
+        fleet member). Both branches are computed from the same calls the
+        stream store makes: ``guard_gram`` (``G = I - PᵀP``, no host
+        synchronisation), ``downdate``, ``solve.gram_verdict``
+        (``eigvalsh(G) > 0``, which reads its solver's status on the host)
+        and ``guard_select``; the store runs all but the verdict inside
+        CUDA graphs.
 
         On the sharded backend the verdict comes from the downdated
         factor's diagonal, which leaves the PD cone exactly when ``A - V
@@ -188,31 +194,49 @@ class CholFactor:
         it owns and a MIN all_reduce over the axis makes one verdict, with
         no gather of the factor.
         """
-        obs_metrics.counter("repro.core.guard_calls",
-                            structure=self.structure,
-                            backend=self.backend).inc()
-        V = api.as_tensor(V, self.device)
-        down = self.downdate(V)
         if self.backend == "sharded":
+            obs_metrics.counter("repro.core.guard_calls",
+                                structure=self.structure,
+                                backend=self.backend).inc()
+            V = api.as_tensor(V, self.device)
+            down = self.downdate(V)
             ok = _distributed.diag_verdict(down.data, mesh=self.mesh,
                                            axis=self.axis)
             new = _distributed.where_sharded(ok, down.data, self.data,
                                              mesh=self.mesh, axis=self.axis)
             return dataclasses.replace(self, data=new), ok
-        ok = self.downdate_feasible(V)
+        V = api.as_tensor(V, self.device)
+        gram = self.guard_gram(V)
+        down = self.downdate(V)
+        ok = _solve.gram_verdict(gram)
+        return self.guard_select(down, ok), ok
+
+    def guard_gram(self, V):
+        """The guarded downdate's Gram matrix ``G = I - PᵀP`` with
+        ``Lᵀ P = V`` (``(B, k, k)`` for a fleet), whose definiteness decides
+        feasibility (``solve.gram_verdict``). Counts one guard call."""
+        obs_metrics.counter("repro.core.guard_calls",
+                            structure=self.structure,
+                            backend=self.backend).inc()
+        V = self._cast(api.as_tensor(V, self.device))
+        return self.storage.downdate_gram(V)
+
+    def guard_select(self, down: "CholFactor", ok) -> "CholFactor":
+        """``down`` where ``ok``, this factor elsewhere; ``ok`` is a scalar
+        for one factor, ``(B,)`` for a fleet, broadcast over each member's
+        blocks."""
         if self.structure != "dense":
-            # The verdict gates every block: scalar for one factor, (B,)
-            # broadcast over each stack's block axes for a fleet.
             def pick(d, o):
                 return torch.where(
                     ok.reshape(ok.shape + (1,) * (d.ndim - ok.ndim)), d, o)
 
             new = type(self.data)(pick(down.data.diag, self.data.diag),
                                   pick(down.data.off, self.data.off))
-            return dataclasses.replace(self, data=new), ok
+            return dataclasses.replace(self, data=new)
         mask = ok[..., None, None] if self.batched else ok
-        new = torch.where(mask, down.data, self.data)
-        return dataclasses.replace(self, data=new), ok
+        return dataclasses.replace(self,
+                                   data=torch.where(mask, down.data,
+                                                    self.data))
 
     def scale(self, alpha) -> "CholFactor":
         """Factor of ``alpha^2 * A``; only ``|alpha|`` matters, so a negative
@@ -220,7 +244,8 @@ class CholFactor:
         structured factor scales alike."""
         if self.structure != "dense":
             return dataclasses.replace(self, data=self.data.scale(alpha))
-        return dataclasses.replace(self, data=self.data * abs(alpha))
+        return dataclasses.replace(self,
+                                   data=_structure.scaled(self.data, alpha))
 
     # -- consumer operations ------------------------------------------------
     # Layout-specific: delegated to the storage (repro_torch.core.structure).
@@ -245,10 +270,11 @@ class CholFactor:
 
     def downdate_feasible(self, V):
         """True where ``A - V V^T`` stays PD (per batch element)."""
-        V = api.as_tensor(V, self.device)
-        if V.dtype != self.dtype:
-            V = V.to(self.dtype)
+        V = self._cast(api.as_tensor(V, self.device))
         return self.storage.downdate_feasible(V)
+
+    def _cast(self, V):
+        return V if V.dtype == self.dtype else V.to(self.dtype)
 
     def is_valid(self, *, tol: float = 0.0):
         """Strictly positive diagonal — the factor invariant."""

@@ -44,17 +44,31 @@ def is_positive_factor(L, *, tol: float = 0.0):
     return torch.all(torch.diagonal(L, dim1=-2, dim2=-1) > tol, dim=-1)
 
 
-def downdate_feasible(L, V):
-    """Check that ``A - V V^T`` stays PD: ``I - P^T P`` PD with ``L^T P = V``.
-
-    Exact for rank 1, the standard sufficiency check for rank k (k
-    triangular solves plus a k x k eigenvalue problem).
-    """
+def downdate_gram(L, V):
+    """``G = I - P^T P`` with ``L^T P = V``: the k x k matrix whose
+    definiteness ``downdate_feasible`` tests (``(B, k, k)`` for a fleet).
+    Triangular solves and products only: no host synchronisation, so it
+    can run inside a CUDA graph capture."""
     if V.ndim == L.ndim - 1:
         V = V[..., None]
     if L.dtype.itemsize < 4:
         L = L.float()
     Pm = solve_triangular(L, V, trans=True)
     k = V.shape[-1]
-    G = torch.eye(k, dtype=L.dtype, device=L.device) - Pm.mT @ Pm
+    return torch.eye(k, dtype=L.dtype, device=L.device) - Pm.mT @ Pm
+
+
+def gram_verdict(G):
+    """True where ``G`` is PD: its eigenvalues (``eigvalsh``) all above 0.
+    ``torch.linalg.eigvalsh`` reads its solver's status on the host, so this
+    part cannot run inside a CUDA graph capture."""
     return torch.all(torch.linalg.eigvalsh(G) > 0, dim=-1)
+
+
+def downdate_feasible(L, V):
+    """Check that ``A - V V^T`` stays PD: ``I - P^T P`` PD with ``L^T P = V``.
+
+    Exact for rank 1, the standard sufficiency check for rank k (k
+    triangular solves plus a k x k eigenvalue problem).
+    """
+    return gram_verdict(downdate_gram(L, V))

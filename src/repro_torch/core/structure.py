@@ -68,6 +68,8 @@ class FactorStorage(Protocol):
 
     def is_valid(self, *, tol: float = 0.0): ...
 
+    def downdate_gram(self, V): ...
+
     def downdate_feasible(self, V): ...
 
     def matrix(self): ...
@@ -126,8 +128,11 @@ class DenseStorage:
     def is_valid(self, *, tol: float = 0.0):
         return _solve.is_positive_factor(self.data, tol=tol)
 
+    def downdate_gram(self, V):
+        return _solve.downdate_gram(self.data, V)
+
     def downdate_feasible(self, V):
-        return _solve.downdate_feasible(self.data, V)
+        return _solve.gram_verdict(self.downdate_gram(V))
 
     def matrix(self):
         return self.data.mT @ self.data
@@ -368,18 +373,22 @@ class BlockTriDiagStorage:
     def is_valid(self, *, tol: float = 0.0):
         return torch.all(self.diagonal() > tol, dim=-1)
 
-    def downdate_feasible(self, V):
-        """``I - PᵀP`` PD for ``Uᵀ P = V``, as the dense path decides it;
-        the forward substitution keeps it O(n·b·k). A fleet takes
-        (B, n, k) and returns (B,) verdicts."""
+    def downdate_gram(self, V):
+        """``I - PᵀP`` for ``Uᵀ P = V`` (``downdate_feasible``'s matrix); the
+        forward substitution keeps it O(n·b·k), with no host
+        synchronisation. A fleet takes (B, n, k) and gives (B, k, k)."""
         if V.ndim == len(self.diag.shape[:-3]) + 1:
             V = V[..., None]
         P = self.solve_triangular(V, trans=True)
         if P.dtype.itemsize < 4:
             P = P.float()
-        G = torch.eye(V.shape[-1], dtype=P.dtype, device=P.device) - \
+        return torch.eye(V.shape[-1], dtype=P.dtype, device=P.device) - \
             P.mT @ P
-        return torch.all(torch.linalg.eigvalsh(G) > 0, dim=-1)
+
+    def downdate_feasible(self, V):
+        """``I - PᵀP`` PD for ``Uᵀ P = V``, as the dense path decides it. A
+        fleet takes (B, n, k) and returns (B,) verdicts."""
+        return _solve.gram_verdict(self.downdate_gram(V))
 
     def astype(self, dtype):
         return BlockTriDiagStorage(self.diag.to(dtype), self.off.to(dtype))
@@ -390,14 +399,25 @@ class BlockTriDiagStorage:
                                    self.off.to(*args, **kwargs))
 
     def scale(self, alpha) -> "BlockTriDiagStorage":
-        """Factor of ``alpha² A``: every block scales by ``|alpha|``."""
-        a = abs(alpha)
-        return BlockTriDiagStorage(self.diag * a, self.off * a)
+        """Factor of ``alpha² A``: every block scales by ``|alpha|``
+        (``scaled``)."""
+        return BlockTriDiagStorage(scaled(self.diag, alpha),
+                                   scaled(self.off, alpha))
 
     def describe(self) -> str:
         if self.batched:
             return f"blocktridiag[{self.batch}x{self.nblocks}x{self.block}]"
         return f"blocktridiag[{self.nblocks}x{self.block}]"
+
+
+def scaled(x, alpha):
+    """``x * |alpha|``. A 16-bit ``x`` is multiplied in fp32 and rounded once,
+    whether ``alpha`` is a Python number or a tensor (a 0-d fp32 tensor
+    would otherwise be rounded to ``x``'s dtype first)."""
+    a = abs(alpha)
+    if x.dtype.itemsize < 4:
+        return (x.float() * a).to(x.dtype)
+    return x * a
 
 
 #: Storage classes the layer knows about.

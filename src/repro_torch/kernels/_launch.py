@@ -24,9 +24,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import List, Tuple
 
 import torch
+
+from repro_torch.obs import metrics as _obs_metrics
 
 #: The tile math's limits (csrc/chol_tile.cuh kMaxPanel / kMaxK).
 MAX_PANEL = 256
@@ -40,10 +43,26 @@ KERNEL_DTYPES = {
 
 
 class LaunchCounter:
-    """Plain integer count of real kernel launches (one per launch)."""
+    """Plain integer count of real kernel launches (one per launch).
+
+    ``inc`` counts a launch, or holds it in the calling thread's
+    ``obs.metrics.deferred()`` while a CUDA graph captures it."""
+
+    _lock = threading.Lock()
 
     def __init__(self):
         self.count = 0
+
+    def inc(self) -> None:
+        held = _obs_metrics.deferred()
+        if held is not None:
+            held.add(("launches", self), 1)
+        else:
+            self.add(1)
+
+    def add(self, k: int) -> None:
+        with self._lock:
+            self.count += k
 
     def reset(self) -> None:
         self.count = 0

@@ -130,7 +130,7 @@ def btd_chain_cuda(diag, off, vt, *, sigma: int, accum_dtype=None):
             k, sigma, code,
             torch.cuda.current_stream(dev).cuda_stream)
     check_rc(rc, lib, "btd_chain")
-    LAUNCHES.count += 1
+    LAUNCHES.inc()
     _obs_metrics.counter("repro.kernels.launches", module="blocktridiag",
                          kernel="btd_chain", panel=b).inc()
     return d_out, o_out

@@ -160,7 +160,7 @@ def _gemm_capacity(device: torch.device, code: int, ffma: bool = False):
 
 
 def _count(name: str, panel: int) -> None:
-    LAUNCHES[name].count += 1
+    LAUNCHES[name].inc()
     _obs_metrics.held_counter("repro.kernels.launches", module="cholupdate",
                               kernel=name, panel=panel).inc()
 

@@ -203,7 +203,7 @@ def fused_chain_cuda(L_pad, vt, *, sigma: int, panel: int,
             sigma, int(panel_apply == "paper"), code,
             torch.cuda.current_stream(dev).cuda_stream)
     check_rc(rc, lib, "fused_chain")
-    LAUNCHES.count += 1
+    LAUNCHES.inc()
     _obs_metrics.counter("repro.kernels.launches", module="fused",
                          kernel="fused_chain", lowering="portable",
                          panel=panel).inc()

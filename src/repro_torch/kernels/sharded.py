@@ -143,7 +143,7 @@ def panel_apply_sharded_cuda(L_loc, T_stack, D_stack, vt_stack, *,
             n_panels, w, panel, k, tile_off, code,
             torch.cuda.current_stream(dev).cuda_stream)
     check_rc(rc, lib, "panel_apply_sharded")
-    LAUNCHES.count += 1
+    LAUNCHES.inc()
     _obs_metrics.held_counter("repro.kernels.launches", module="sharded",
                               kernel="panel_apply_sharded", panel=panel).inc()
     return out

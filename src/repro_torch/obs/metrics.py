@@ -35,6 +35,7 @@ Stdlib-only on purpose: every layer of the port imports this module.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 import threading
 import time
@@ -78,6 +79,11 @@ class Counter(_Metric):
         self._value = 0
 
     def inc(self, k: int = 1) -> None:
+        held = getattr(_LOCAL, "deferred", None)
+        if held is not None:
+            held.add(("series", self.name,
+                      tuple(sorted(self.labels.items()))), k)
+            return
         with self._lock:
             self._value += k
 
@@ -299,6 +305,48 @@ def counter(name: str, **labels) -> Counter:
 
 
 _HELD: Dict[Tuple, Tuple] = {}
+
+_LOCAL = threading.local()
+
+
+class Deferred:
+    """Counts one thread held back inside ``deferring``: counter increments
+    by series (applied to the default registry), and the increments of
+    other counters that consult ``deferred()`` (a kernel wrapper's
+    ``LaunchCounter``) by object. ``apply`` makes them count, once per
+    call."""
+
+    def __init__(self):
+        self.counts: Dict[Tuple, int] = {}
+
+    def add(self, key: Tuple, k: int) -> None:
+        self.counts[key] = self.counts.get(key, 0) + k
+
+    def apply(self) -> None:
+        for key, k in self.counts.items():
+            if key[0] == "series":
+                counter(key[1], **dict(key[2])).inc(k)
+            else:
+                key[1].add(k)
+
+
+def deferred() -> Optional[Deferred]:
+    """The calling thread's ``Deferred`` inside ``deferring``, else None."""
+    return getattr(_LOCAL, "deferred", None)
+
+
+@contextlib.contextmanager
+def deferring():
+    """Hold the calling thread's counter increments in a ``Deferred``
+    instead of counting them; other threads count as usual. The stream
+    store captures a CUDA graph inside this: the launches a capture
+    records did not run, and each replay of the graph applies them."""
+    prev = deferred()
+    _LOCAL.deferred = held = Deferred()
+    try:
+        yield held
+    finally:
+        _LOCAL.deferred = prev
 
 
 def held_counter(name: str, **labels) -> Counter:

@@ -400,8 +400,9 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_import_leaves_no_jax_or_reference_module():
-    """Every module of the package imports, and none of them pulls in JAX or
-    the JAX package (the package is walked, so a new module is covered)."""
+    """Every module of the package imports, and none of them pulls in JAX,
+    ``ml_dtypes`` or the JAX package (the package is walked, so a new module
+    is covered)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -410,9 +411,12 @@ def test_import_leaves_no_jax_or_reference_module():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'repro_torch.kernels.ops', 'repro_torch.core.structure',\n"
-        "        'repro_torch.kernels.blocktridiag'} <= set(names), names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        "        'repro_torch.kernels.blocktridiag', 'repro_torch.stream',\n"
+        "        'repro_torch.stream.store', 'repro_torch.stream.durability',\n"
+        "        'repro_torch.checkpoint', 'repro_torch.obs.tracing'\n"
+        "        } <= set(names), names\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'repro', 'ml_dtypes')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -957,3 +957,284 @@ def test_no_plain_version_on_cuda_for_the_sharded_route(cuda_mesh):
         SH.panel_apply_sharded_cuda(
             L[0], torch.zeros(2, 65, 65, device="cuda"), D,
             torch.zeros(2, 33, 64, device="cuda"), tile_off=0, panel=32)
+
+
+# ---------------------------------------------------------------------------
+# The stream store's CUDA graphs
+# ---------------------------------------------------------------------------
+
+STREAM_N, STREAM_B = 64, 8  # dense n; block size of the structured fleet
+
+
+def stream_store(dev, structure, dtype, **kw):
+    """A two-rung (2, 4) store, widths (1, 4), warmed: its steps are
+    captured graphs."""
+    from repro_torch.stream import FactorStore
+
+    dt, acc = DTYPES[dtype]
+    opts = dict(capacity=2, ladder=(2, 4), width=4, widths=(1, 4),
+                panel=32, device=dev, dtype=torch.float32 if acc else dt,
+                precision="bf16" if acc else None)
+    if structure == "blocktridiag":
+        opts.update(structure="blocktridiag", block=STREAM_B)
+    opts.update(kw)
+    st = FactorStore(STREAM_N, **opts)
+    st.warmup()
+    return st
+
+
+def stream_rows(st, w, seed, scale=0.3):
+    """A (capacity, n, w) host block of rows (block-local for a structured
+    fleet)."""
+    rng = np.random.default_rng(seed)
+    V = scale * rng.normal(size=(st.capacity, st.n, w))
+    if st.block is not None:
+        b = st.block
+        mask = np.zeros_like(V)
+        for m in range(st.capacity):
+            for c in range(w):
+                j = int(rng.integers(0, st.n // b - 1))
+                mask[m, j * b:(j + 2) * b, c] = 1.0
+        V = V * mask
+    return V.astype(st.row_dtype)
+
+
+def fleet_leaves(data):
+    if isinstance(data, BlockTriDiagStorage):
+        return [data.diag, data.off]
+    return [data]
+
+
+def fleet_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(fleet_leaves(a),
+                                                 fleet_leaves(b)))
+
+
+def clone_fleet(data):
+    return (BlockTriDiagStorage(data.diag.clone(), data.off.clone())
+            if isinstance(data, BlockTriDiagStorage) else data.clone())
+
+
+@pytest.mark.parametrize("structure", ["dense", "blocktridiag"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_stream_replay_equals_the_eager_step(cuda, structure, dtype):
+    """Every step kind replayed from its graph equals the eager calls
+    (``CholFactor.update``, ``downdate_guarded``, ``scale``; the eager
+    step for slot_set and promote) on a clone of the fleet, bit for bit,
+    verdicts included (one member's downdate infeasible)."""
+    st = stream_store(cuda, structure, dtype)
+    meta = st._meta
+    for u in "ab":
+        st.admit(u)
+    st.apply(stream_rows(st, 4, seed=1), None)
+    torch.cuda.synchronize()
+
+    def eager(data):
+        return CholFactor(clone_fleet(data), **meta)
+
+    up = stream_rows(st, 4, seed=2)
+    before = eager(st.factor.data)
+    assert st.apply(up, None) is None
+    ref = before.update(torch.from_numpy(up).to(cuda))
+    assert fleet_equal(st.factor.data, ref.data), "up"
+
+    for both in (False, True):
+        dn = stream_rows(st, 1 if both else 4, seed=3 + both, scale=0.05)
+        dn[1] *= 100.0                     # member 1: infeasible
+        vup = stream_rows(st, 4, seed=5) if both else None
+        before = eager(st.factor.data)
+        ok = st.apply(vup, dn)
+        if both:
+            before = before.update(torch.from_numpy(vup).to(cuda))
+        ref, ok_ref = before.downdate_guarded(torch.from_numpy(dn).to(cuda))
+        assert ok.tolist() == ok_ref.tolist() == [True, False]
+        assert fleet_equal(st.factor.data, ref.data), ("both" if both
+                                                       else "down")
+
+    before = eager(st.factor.data)
+    st.decay(0.9)
+    alpha = torch.tensor(st.row_dtype.type(0.9), device=cuda)
+    assert fleet_equal(st.factor.data, before.scale(alpha).data), "scale"
+
+    st.evict("a")
+    base = [t.clone() for t in st._base]
+    st.admit("c", scale=2.0)
+    step = st.steps.entries[st.steps.key("slot_set", 2)]
+    step.run(base, eager=True)
+    assert all(torch.equal(x, y) for x, y in zip(st._base, base))
+    st.admit("d")                           # promote 2 -> 4, then slot_set
+    assert st.capacity == 4
+    step = st.steps.entries[st.steps.key("promote", 2)]
+    step.run(base, eager=True)
+    st.steps.entries[st.steps.key("slot_set", 4)].run(base, eager=True)
+    assert all(torch.equal(x, y) for x, y in zip(st._base, base))
+    assert st.steps.cold_dispatches == 0
+
+
+@pytest.mark.parametrize("structure", ["dense", "blocktridiag"])
+def test_stream_replay_counts_the_launches_its_graph_holds(cuda, structure):
+    """A capture holds its launches back (they did not run); each replay
+    adds the launches its graph holds: 1 fused_chain (dense, k <= 32) or 1
+    btd_chain (structured) per sign block, in ``LAUNCHES`` and in
+    ``repro.kernels.launches``."""
+    from repro_torch.obs import metrics
+    from repro_torch.stream import mutations_issued
+
+    counter = F.LAUNCHES if structure == "dense" else BT.LAUNCHES
+    series = "fused" if structure == "dense" else "blocktridiag"
+
+    def registry():
+        return sum(v for key, v in metrics.snapshot()["counters"].items()
+                   if key.startswith("repro.kernels.launches{")
+                   and f"module={series}," in key)
+
+    c0, r0 = counter.count, registry()
+    st = stream_store(cuda, structure, "fp32")
+    torch.cuda.synchronize()
+    warm = counter.count - c0              # the eager warm-up runs only
+    assert registry() - r0 == warm > 0
+    st.admit("a")
+    for vup, dn, want in ((stream_rows(st, 4, 1), None, 1),
+                          (None, stream_rows(st, 1, 2, 0.05), 1),
+                          (stream_rows(st, 4, 3), stream_rows(st, 4, 4, 0.05),
+                           2)):
+        c1, r1, m1 = counter.count, registry(), mutations_issued()
+        st.apply(vup, dn)
+        torch.cuda.synchronize()
+        assert counter.count - c1 == registry() - r1 == want
+        assert mutations_issued() - m1 == want
+
+
+def test_stream_service_crossing_a_rung_never_captures(cuda):
+    """assert_no_retrace over admit / push / tick / flush / decay / evict /
+    readmit / promote after warmup; a cold width met by the background
+    worker is captured there and counted."""
+    from repro_torch.stream import (RetraceError, StreamService,
+                                    assert_no_retrace)
+
+    st = stream_store(cuda, "dense", "fp32")
+    svc = StreamService(st, window=3, deadline=2)
+    rng = np.random.default_rng(7)
+    with assert_no_retrace("two-rung sequence"):
+        for t in range(10):
+            for u in "ab":
+                svc.push(u, 0.3 * rng.normal(size=st.n).astype(np.float32))
+            if t == 4:
+                svc.admit("c")             # promote 2 -> 4
+                svc.decay(0.95)
+                svc.evict("b")
+                svc.admit("b")
+            svc.tick()
+        svc.flush(force=True)
+    assert st.capacity == 4 and st.steps.cold_dispatches == 0
+    assert bool(st.factor.is_valid().all())
+
+    cold = stream_store(cuda, "dense", "fp32")
+    del cold.steps.entries[cold.steps.key("up", 2, (4,))]
+    svc = StreamService(cold, background=True)
+    with pytest.raises(RetraceError):
+        with assert_no_retrace("a cold width in the worker"):
+            for v in 0.3 * rng.normal(size=(4, cold.n)):
+                svc.push("a", v.astype(np.float32))  # 4th row: width flush
+            reports = svc.drain()
+    svc.stop_background()
+    assert [r.widths for r in reports] == [(4,)]
+    assert cold.steps.cold_dispatches == 1
+
+
+def test_stream_capture_in_a_thread_holds_only_its_own_counts(cuda):
+    """A graph captured in a worker thread while another store replays in
+    this one: the replays count once each, the capture holds back only its
+    own thread's launch (its eager warm-up run on a scratch fleet ran and
+    counts), and each replay of the new graph adds its one launch, in
+    ``LAUNCHES`` and in ``repro.kernels.launches``."""
+    import threading
+
+    from repro_torch.obs import metrics
+
+    def registry():
+        return sum(v for key, v in metrics.snapshot()["counters"].items()
+                   if key.startswith("repro.kernels.launches{")
+                   and "module=fused," in key)
+
+    hot = stream_store(cuda, "dense", "fp32")
+    cold = stream_store(cuda, "dense", "fp32")
+    for st in (hot, cold):
+        st.admit("a")
+    key = cold.steps.key("up", 2, (4,))
+    del cold.steps.entries[key]
+    V = stream_rows(hot, 4, seed=1, scale=0.01)
+    torch.cuda.synchronize()
+    c0, r0 = F.LAUNCHES.count, registry()
+    done = threading.Event()
+    failed = []
+
+    def capture():
+        try:
+            cold.steps.build("up", 2, (4,))
+        except Exception as e:  # surfaced below
+            failed.append(e)
+        finally:
+            done.set()
+
+    worker = threading.Thread(target=capture)
+    worker.start()
+    replays = 0
+    while not done.is_set() or replays < 20:
+        hot.apply(V, None)
+        replays += 1
+    worker.join()
+    torch.cuda.synchronize()
+    assert not failed, failed
+    want = replays + 1                    # + the capture's eager run
+    assert F.LAUNCHES.count - c0 == registry() - r0 == want
+    for _ in range(3):
+        cold.apply(V, None)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES.count - c0 == registry() - r0 == want + 3
+    assert len(cold.steps.entries[key].graphs) == 1
+
+
+def test_stream_store_refuses_a_fleet_the_card_cannot_hold(cuda):
+    """A CUDA store holds its top rung from construction: a derived ladder
+    (top rung 128 x capacity) past the card's free memory is refused by
+    name, and an explicit ladder that fits holds exactly its top rung."""
+    from repro_torch.stream import FactorStore
+
+    with pytest.raises(ValueError, match="ladder="):
+        FactorStore(4096, capacity=64, device=cuda)   # ~550 GB
+    st = FactorStore(256, capacity=2, ladder=(2, 4), device=cuda)
+    assert st._base[0].shape == (4, 256, 256)
+
+
+def test_stream_capture_holds_the_collector_off(cuda):
+    """Python's cyclic collector is off during every capture and back on
+    after: a dropped store's graphs freed by it inside a capture would
+    reset there and invalidate the capture."""
+    import gc
+
+    from repro_torch.stream import FactorStore
+
+    st = FactorStore(STREAM_N, capacity=2, ladder=(2, 4), width=4,
+                     widths=(1, 4), panel=32, device=cuda)
+    make, seen = st._make_step, []
+
+    def make_step(name, cap, widths):
+        step = make(name, cap, widths)
+        parts = list(step.parts)
+
+        def watched(part):
+            def run(base):
+                if torch.cuda.is_current_stream_capturing():
+                    seen.append(gc.isenabled())
+                part(base)
+            return run
+
+        step.parts = [watched(p) for p in parts]
+        return step
+
+    st._make_step = make_step
+    assert gc.isenabled()
+    st.warmup()
+    assert len(seen) == st.steps.graphs > 0 and not any(seen)
+    assert gc.isenabled()
