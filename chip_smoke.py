@@ -27,6 +27,14 @@ user calls, and holds every kernel against its plain torch version:
   calls, the restored fleet to the live one, every member to the float64
   matrix it should hold; the Chrome trace written to
   ``chiprun_out/stream_trace.json``.
+* gradients through the update and training (path 3j): ``torch.autograd``
+  through ``chol_update`` (the Murray rule around the fused chain) at
+  n = 5000 and on the B = 64 fleet (fp32, bf16 storage) and through the
+  block chain on the wide block, each against float64 and a central
+  difference; then ``cholesky_precond`` training 20 steps on the seven
+  weight matrices of one llama3.2-3b layer, its batched factors taking
+  scale, update, downdate (the fused chain) and solve every step, held to
+  the float64 statistics they should hold.
 
 Builds every kernel from the sources in ``src/repro_torch/kernels/csrc``,
 checks the launches each path takes (counts set to 0 just before a path
@@ -43,6 +51,7 @@ import argparse
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -963,6 +972,439 @@ def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
     return results, timings
 
 
+# -- the train phase (path 3j) ------------------------------------------------
+#
+# Gradients through the update (core/autodiff.py: the Murray rule as a
+# torch.autograd.Function around the dispatched kernel) and CholeskyPrecond
+# training (optim/), whose batched factors take scale, update (fused_chain),
+# downdate (fused_chain) and solve on every step.
+
+#: One layer of the repo's llama3.2-3b (src/repro/configs/llama3_2_3b.py:
+#: d_model 3072, 24 heads and 8 KV heads of 128, d_ff 8192): its seven
+#: weight matrices as (in, out), ``X @ W``.
+TRAIN_SHAPES = {"q": (3072, 3072), "k": (3072, 1024), "v": (3072, 1024),
+                "o": (3072, 3072), "gate": (3072, 8192),
+                "up": (3072, 8192), "down": (8192, 3072)}
+#: The optimizer's own configuration (src/repro/launch/dryrun.py:63: lr
+#: 3e-4, rank 16, blocks of 1024), with a window of 4 and beta 0.999, over
+#: 20 steps of a seeded least-squares loss per matrix (256 rows).
+TRAIN_OPT = dict(rank=16, block_size=1024, window=4, beta=0.999)
+TRAIN_LR, TRAIN_STEPS, TRAIN_ROWS = 3e-4, 20, 256
+#: The step of the fourth-order central difference along a unit direction
+#: (f64): its truncation goes as h^4, its rounding as eps(f64) / h.
+FD_STEP = 0.05
+
+
+def _phi(torch, outs):
+    """The loss of tests/test_factor.py, sum sin(x) cos(x / 2), over every
+    tensor of ``outs`` (fp32 unless float64)."""
+    total = 0.0
+    for x in outs:
+        x = x if x.dtype == torch.float64 else x.float()
+        total = total + (x.sin() * (0.5 * x).cos()).sum()
+    return total
+
+
+def _kappa2(torch, U):
+    """kappa_2 of the upper factor(s) ``U`` (the worst member), from the
+    eigenvalues of ``U^T U`` in float64."""
+    U = U.detach().double()
+    lam = torch.linalg.eigvalsh(U.mT @ U)
+    return float(torch.sqrt(lam[..., -1] / lam[..., 0]).max())
+
+
+def _unit_direction(torch, gen, xs, masks):
+    """A seeded direction of unit norm over the tensors ``xs`` (float64),
+    each masked (the factor's own entries, V's support)."""
+    d = [torch.randn(x.shape, generator=gen, dtype=torch.float64,
+                     device=x.device) * m for x, m in zip(xs, masks)]
+    norm = torch.sqrt(sum((t * t).sum() for t in d))
+    return [t / norm for t in d]
+
+
+def _grad_case(torch, name, fwd, xs, masks, *, f64_ref,
+               precision_ref=None, mem=None):
+    """One gradient case of path 3j: ``fwd(*xs)`` (a tuple of outputs; an
+    update, then a downdate by half the rows) with and without gradients.
+
+    (a) the forward with gradients on equals it with gradients off;
+    (b) the fp32 gradients against the same rule in float64 on the float64
+        forward (``f64_ref``), or ``precision_ref(saved)`` for bf16
+        storage, relative to the reference's largest entry, limit
+        sqrt(n) u(fp32) kappa_2 (PERF.md §6, path 3j);
+    (c) in float64, <g, d> against the central difference of the loss along
+        a seeded unit direction d (masked to the storage's entries),
+        relative, limit 1e-6;
+    (d) the backward launches no repo kernel.
+    Returns the forward's launches (the path's count) and the readings."""
+    res = {"name": name}
+    off = fwd(*xs)
+    leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+    saved = {}
+    if mem is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+    c0 = _launch_counts()
+    t0 = time.perf_counter()
+    on = fwd(*leaves, saved=saved)
+    torch.cuda.synchronize()
+    res["fwd_ms"] = (time.perf_counter() - t0) * 1e3
+    c1 = _launch_counts()
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(_phi(torch, on), leaves)
+    torch.cuda.synchronize()
+    res["bwd_ms"] = (time.perf_counter() - t0) * 1e3
+    c2 = _launch_counts()
+    if mem is not None:
+        res["peak_gb"] = (torch.cuda.max_memory_allocated() - m0) / 1e9
+        res["mem_bar_gb"] = mem
+    res["fwd_launches"] = {k: v for k, v in _counts_minus(c1, c0).items()
+                           if v}
+    res["bwd_launches"] = {k: v for k, v in _counts_minus(c2, c1).items()
+                           if v}
+    res["equal"] = all(torch.equal(a.detach(), b) for a, b in zip(on, off))
+    res["finite"] = all(bool(torch.isfinite(g).all()) for g in grads)
+    res["dtypes"] = [str(g.dtype).replace("torch.", "") for g in grads]
+    if precision_ref is not None:
+        ref, kappa, n = precision_ref(saved, grads)
+        pairs = [(grads[0], ref)]
+    else:
+        ref, kappa, n = f64_ref
+        pairs = list(zip(grads, ref))
+    res["b_err"] = max(float((g.double() - r).abs().max() / r.abs().max())
+                       for g, r in pairs)
+    res["kappa"] = kappa
+    res["b_lim"] = math.sqrt(n) * 2.0 ** -24 * kappa
+    return res
+
+
+def _fd_check(torch, fwd64, xs64, grads64, masks, gen):
+    """Check (c): <g, d> against the fourth-order central difference of
+    the loss, (f(-2h) - 8 f(-h) + 8 f(h) - f(2h)) / 12h."""
+    d = _unit_direction(torch, gen, xs64, masks)
+    gd = float(sum((g * t).sum() for g, t in zip(grads64, d)))
+    with torch.no_grad():
+        f = {s: float(_phi(torch, fwd64(*(x + s * FD_STEP * t
+                                          for x, t in zip(xs64, d)))))
+             for s in (-2, -1, 1, 2)}
+    fd = (f[-2] - 8 * f[-1] + 8 * f[1] - f[2]) / (12 * FD_STEP)
+    return gd, fd, abs(fd - gd) / abs(gd)
+
+
+def _f64_run(torch, fwd, xs):
+    """The float64 forward and its gradients."""
+    leaves = [x.detach().double().requires_grad_(True) for x in xs]
+    outs = fwd(*leaves)
+    grads = torch.autograd.grad(_phi(torch, outs), leaves)
+    return outs, grads
+
+
+def _print_grad_case(res, card):
+    print(f"train grad {res['name']} on {card}: forward {res['fwd_ms']:.1f} "
+          f"ms, backward {res['bwd_ms']:.1f} ms; launches forward "
+          f"{res['fwd_launches']}, backward {res['bwd_launches']}; "
+          f"gradient dtypes {res['dtypes']}"
+          + (f"; peak memory added {res['peak_gb']:.4f} GB (bar "
+             f"{res['mem_bar_gb']:.3f})" if "peak_gb" in res else ""))
+    print(f"  (a) forward with gradients == without (torch.equal) "
+          f"{res['equal']}")
+    if res.get("b_lim"):
+        print(f"  (b) relative error against the float64 rule "
+              f"{res['b_err']:.3e} (limit sqrt(n) u kappa_2 = "
+              f"{res['b_lim']:.3e}, kappa_2 {res['kappa']:.1f})")
+    else:
+        print(f"  fp32 against float64 gradients, relative {res['b_err']:.3e}"
+              f" (reported)")
+    if "fd_rel" in res:
+        print(f"  (c) float64 <g, d> {res['gd']:.12e} against the central "
+              f"difference {res['fd']:.12e} (fourth order, h = {FD_STEP}): "
+              f"relative "
+              f"{res['fd_rel']:.3e} (limit 1e-6)")
+
+
+def _dense_grad_cases(torch, L, V, Lf, Vf, gen):
+    """Dense gradients: the factor (n = 5000 on the card) and the fleet
+    (B = 64, n = 1024) in fp32, the fleet in bf16 storage."""
+    from repro_torch.core import api, autodiff
+
+    def make(fn, precision=None):
+        def fwd(L, V, saved=None):
+            up = fn(L, V, method="fused", precision=precision)
+            dn = fn(up, 0.5 * V, sigma=-1, method="fused",
+                    precision=precision)
+            if saved is not None and up.requires_grad:
+                saved["up"] = up
+                up.register_hook(lambda g: saved.__setitem__("g_up", g))
+            return (dn,)
+        return fwd
+
+    out = []
+    for name, fn, Lx, Vx in (("factor", api.chol_update, L, V),
+                             ("fleet", api.chol_update_batched, Lf, Vf)):
+        fwd = make(fn)
+        masks = [torch.triu(torch.ones_like(Lx, dtype=torch.float64)),
+                 torch.ones_like(Vx, dtype=torch.float64)]
+        xs64 = [Lx.double(), Vx.double()]
+        outs64, grads64 = _f64_run(torch, fwd, xs64)
+        up64 = fn(xs64[0], xs64[1], method="fused")
+        kappa = max(_kappa2(torch, up64), _kappa2(torch, outs64[0]))
+        n = Lx.shape[-1]
+        del up64
+        res = _grad_case(torch, f"{name} fp32", fwd, [Lx, Vx], masks,
+                         f64_ref=(grads64, kappa, n))
+        res["gd"], res["fd"], res["fd_rel"] = _fd_check(
+            torch, fwd, xs64, grads64, masks, gen)
+        out.append(res)
+        del outs64, grads64
+        if name == "fleet":
+            def rule64(saved, grads, Lx=Lx):
+                # The update's own rule in float64 on what the bf16 run
+                # saved: the bf16-stored factor and its cotangent.
+                Ln = saved["up"].detach().double()
+                Abar = autodiff._murray_adjoint(Ln, saved["g_up"].double())
+                ref = Lx.double() @ (Abar + Abar.mT)
+                return ref, _kappa2(torch, Ln), Lx.shape[-1]
+
+            out.append(_grad_case(torch, "fleet bf16", make(fn, "bf16"),
+                                  [Lx, Vx], masks, f64_ref=None,
+                                  precision_ref=rule64))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _structured_grad_case(torch, S, V, gen):
+    """Structured gradients on the wide block (b = 64, nb = 512, k = 16,
+    block-local V) through btd_chain, with the memory bar: 10 % of one
+    dense (n, n) fp32 matrix."""
+    from repro_torch.core import BlockTriDiagStorage, api
+
+    def fwd(D, O, V, saved=None):
+        up = api.chol_update(BlockTriDiagStorage(D, O), V,
+                             method="blocktridiag")
+        dn = api.chol_update(up, 0.5 * V, sigma=-1, method="blocktridiag")
+        return dn.diag, dn.off
+
+    n = S.n
+    xs = [S.diag, S.off, V]
+    masks = [torch.triu(torch.ones_like(S.diag, dtype=torch.float64)),
+             torch.ones_like(S.off, dtype=torch.float64),
+             (V != 0).double()]
+    xs64 = [x.double() for x in xs]
+    _, grads64 = _f64_run(torch, fwd, xs64)
+    res = _grad_case(torch, f"wide block b={S.block} nb={S.nblocks} fp32",
+                     fwd, xs, masks, f64_ref=(grads64, 0.0, n),
+                     mem=0.1 * 4 * n * n / 1e9)
+    res["b_lim"] = None  # check (b) is the dense cases'
+    res["gd"], res["fd"], res["fd_rel"] = _fd_check(torch, fwd, xs64,
+                                                    grads64, masks, gen)
+    return res
+
+
+def _train_run(torch, dev, seed, shapes, steps, rows):
+    """CholeskyPrecond on the seven matrices of ``shapes``: ``steps``
+    steps of a seeded least-squares loss per matrix. Records every sketch
+    (the optimizer's own draw, recomputed) into float64 statistics with
+    their check-4 budget, and times each step (event loop)."""
+    import importlib
+
+    import repro_torch.optim as optim
+
+    cp = importlib.import_module("repro_torch.optim.cholesky_precond")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    data, params = {}, {}
+    for name, (m, n) in shapes.items():
+        X = torch.randn(rows, m, generator=gen, device=dev)
+        W = torch.randn(m, n, generator=gen, device=dev) / math.sqrt(m)
+        data[name] = (X, X @ W)
+        params[name] = torch.zeros(m, n, device=dev)
+    opt = optim.cholesky_precond(TRAIN_LR, **TRAIN_OPT)
+    rank, bs, window, beta = (TRAIN_OPT[k] for k in
+                              ("rank", "block_size", "window", "beta"))
+    eps = 1e-2  # cholesky_precond's default
+    state = opt.init(params)
+    order = sorted(shapes)  # the optimizer's parameter index
+    shadow, budget, sketches = {}, {}, {name: [] for name in order}
+    for name in order:
+        d = min(shapes[name])
+        b = min(bs, d)
+        shadow[name] = eps * torch.eye(b, dtype=torch.float64,
+                                       device=dev).repeat(d // b, 1, 1)
+        budget[name] = torch.zeros(d // b, dtype=torch.float64, device=dev)
+
+    def account(name):
+        # A mutation may add n eps(fp32) times the largest entry of the
+        # matrix it leaves, n the factor's order (PERF.md §6, check 4).
+        A = shadow[name]
+        budget[name] += A.shape[-1] * float(torch.finfo(torch.float32).eps) \
+            * A.abs().flatten(1).amax(1)
+
+    losses, step_ms, launches = [], [], []
+    for step in range(1, steps + 1):
+        torch.cuda.synchronize()
+        c0 = _launch_counts()
+        t0 = time.perf_counter()
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+        loss = sum(0.5 * torch.mean(torch.square(data[k][0] @ leaves[k]
+                                                 - data[k][1]))
+                   for k in order)
+        grads = dict(zip(order, torch.autograd.grad(
+            loss, [leaves[k] for k in order])))
+        upd, state = opt.update(grads, state, params)
+        params = optim.apply_updates(params, upd)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_counts_minus(_launch_counts(), c0))
+        losses.append(float(loss.detach()))
+        # The statistics each factor should hold, in float64.
+        for i, name in enumerate(order):
+            g = grads[name].float()
+            m, n = g.shape
+            gmat = g if m <= n else g.T
+            dd, other = gmat.shape
+            b = min(bs, dd)
+            v = gmat @ cp.sketch(other, rank, seed=0, step=step, index=i,
+                                 device=dev)
+            sketches[name].append(v)
+            vb = v.double().reshape(dd // b, b, rank)
+            shadow[name] *= beta
+            account(name)
+            shadow[name] += vb @ vb.mT
+            account(name)
+            if step > window:
+                old = sketches[name][step - 1 - window].double().reshape(
+                    dd // b, b, rank) * beta ** (window / 2)
+                shadow[name] -= old @ old.mT
+                account(name)
+    out = {"losses": losses, "step_ms": step_ms, "launches": launches,
+           "members": {}}
+    for name in order:
+        c = state["factors"][name]["c"]
+        C = c.data.double()
+        A = shadow[name]
+        den = A.abs().flatten(1).amax(1)
+        err = (C.mT @ C - A).abs().flatten(1).amax(1) / den
+        out["members"][name] = (bool(c.is_valid().all()),
+                                err.tolist(), (budget[name] / den).tolist(),
+                                tuple(c.data.shape))
+    # The preconditioner alone on the last step's operands (after the
+    # counted run): decay, update, downdate and solve of every factor.
+    def precond():
+        for i, name in enumerate(order):
+            fac = state["factors"][name]
+            c = fac["c"]
+            nb_, b_ = c.data.shape[0], c.data.shape[-1]
+            v = sketches[name][-1].reshape(nb_, b_, rank)
+            c2 = c.scale(math.sqrt(beta)).update(v).downdate(
+                fac["ring"][0].reshape(nb_, b_, rank) * beta)
+            g = grads[name].float()
+            gmat = g if g.shape[0] <= g.shape[1] else g.T
+            c2.solve(gmat.reshape(nb_, b_, -1))
+
+    precond()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(5):
+        precond()
+    e1.record()
+    torch.cuda.synchronize()
+    out["precond_ms"] = e0.elapsed_time(e1) / 5
+    return out
+
+
+def train_phase(torch, np, dev, seed, dense, fleet, wide, card,
+                shapes=None, steps=TRAIN_STEPS, rows=TRAIN_ROWS):
+    """Path 3j: dense gradients on ``dense`` (L, V) and ``fleet`` (L, V),
+    structured gradients on ``wide`` (storage, V), then CholeskyPrecond
+    training on ``shapes`` (default one llama3.2-3b layer). Returns the
+    launches of the path's own runs (the gradient forwards and the
+    training steps; not the float64 references, differences and
+    timings)."""
+    t_start = time.perf_counter()
+    shapes = TRAIN_SHAPES if shapes is None else shapes
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    path = {name: 0 for name in _launch_counts()}
+
+    def add(got):
+        for k, v in got.items():
+            path[k] += v
+
+    cases = _dense_grad_cases(torch, *dense, *fleet, gen)
+    cases.append(_structured_grad_case(torch, *wide, gen))
+    for res in cases:
+        _print_grad_case(res, card)
+        add(res["fwd_launches"])
+        structured = res["name"].startswith("wide")
+        kernel = "btd_chain" if structured else "fused_chain"
+        want = {kernel: 2} if dev.type == "cuda" else {}
+        check(res["equal"] and res["finite"],
+              f"train grad {res['name']}: check (a) failed or a gradient "
+              "is not finite")
+        check(res["fwd_launches"] == want and not res["bwd_launches"],
+              f"train grad {res['name']}: check (d) failed: forward "
+              f"{res['fwd_launches']} (want {want}), backward "
+              f"{res['bwd_launches']} (want none)")
+        check(res["dtypes"][-1] == "float32",
+              f"train grad {res['name']}: V's gradient is not fp32")
+        if res.get("b_lim"):
+            check(res["b_err"] <= res["b_lim"],
+                  f"train grad {res['name']}: check (b) above its limit")
+        if "fd_rel" in res:
+            check(res["fd_rel"] <= 1e-6,
+                  f"train grad {res['name']}: check (c) above 1e-6")
+        if "peak_gb" in res:
+            check(res["peak_gb"] < res["mem_bar_gb"],
+                  f"train grad {res['name']}: memory above its bar")
+    t_grads = time.perf_counter() - t_start
+    torch.cuda.empty_cache()
+
+    run = _train_run(torch, dev, seed, shapes, steps, rows)
+    fused = [c["fused_chain"] for c in run["launches"]]
+    window = TRAIN_OPT["window"]
+    want = [len(shapes) * (1 + (s > window)) for s in range(1, steps + 1)]
+    if dev.type != "cuda":
+        want = [0] * steps
+    others = sum(v for c in run["launches"] for k, v in c.items()
+                 if k != "fused_chain")
+    for c in run["launches"]:
+        add(c)
+    ms = np.asarray(run["step_ms"])
+    p50, p90 = float(np.percentile(ms, 50)), float(np.percentile(ms, 90))
+    print(f"train cholesky_precond on {card}: {len(shapes)} matrices "
+          f"{sorted(shapes.items())}, {TRAIN_OPT}, lr {TRAIN_LR}, {steps} "
+          f"steps: loss step 1 {run['losses'][0]:.6e}, step {steps} "
+          f"{run['losses'][-1]:.6e}")
+    print(f"  step time (event loop) p50 {p50:.3f} / p90 {p90:.3f} ms "
+          f"(first {run['step_ms'][0]:.3f}); the preconditioner alone "
+          f"(scale, update, downdate, solve of every factor; CUDA events) "
+          f"{run['precond_ms']:.3f} ms = {run['precond_ms'] / p50:.1%} of "
+          f"the p50 step")
+    print(f"  launches fused_chain per step {fused} (want {want}: one a "
+          f"matrix a step, and one more once the ring is full); other "
+          f"kernels {others}")
+    worst = []
+    for name, (valid, err, lim, shape) in run["members"].items():
+        ok = valid and all(e <= li for e, li in zip(err, lim))
+        worst.append(ok)
+        print(f"  factor {name} {shape}: valid {valid}, relative "
+              f"modify_error per member "
+              f"{', '.join(f'{e:.3e}' for e in err)} (limits "
+              f"{', '.join(f'{x:.3e}' for x in lim)})  "
+              f"{'ok' if ok else 'FAIL'}")
+    check(run["losses"][-1] < run["losses"][0],
+          "train: the loss at the last step is not below the first's")
+    check(all(worst), "train: a factor is invalid or off its statistics")
+    check(fused == want and others == 0,
+          "train: launches off the budget (one fused_chain a matrix a "
+          "step, one more once the ring is full)")
+    print(f"path train: {time.perf_counter() - t_start:.1f} s (gradients "
+          f"{t_grads:.1f} s)")
+    return path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1787,6 +2229,17 @@ def main(argv=None) -> int:
     check(all(got[k] == v > 0 for k, v in want.items())
           and sum(got.values()) == sum(want.values()),
           "the stream path's launches are off the flushes' budget")
+    torch.cuda.empty_cache()
+
+    # 3j. gradients through the update (the Murray rule around the fused
+    # chain at n = 5000 and on the B = 64 fleet, fp32 and bf16, around the
+    # block chain on the wide block) and CholeskyPrecond training on one
+    # llama3.2-3b layer (train_phase): the launches of its own runs.
+    reset_counts()
+    got = train_phase(torch, np, dev, args.seed, (f0.data, V), (Lf, Vf),
+                      (Sw, Vw), card)
+    add_path(got)
+    print(f"path train: launches {got}")
     torch.cuda.empty_cache()
 
     # -- kernel vs plain at the main paths' shapes (not counted) --------------

@@ -21,16 +21,23 @@ e.g. ``BlockTriDiagStorage``): ``method`` then resolves against its
 structure ('auto' -> ``blocktridiag`` on CUDA, ``blocktridiag_ref`` on
 the CPU), and a structured fleet goes through ``chol_update_batched``.
 
-Not ported yet: gradients through the update (ROADMAP queue 1 item 4)
-raise ``NotImplementedError``.
+Gradients: when an input requires a gradient (or carries a forward-AD
+tangent), the call goes through the Murray rules of
+``repro_torch.core.autodiff`` (a ``torch.autograd.Function`` around the
+dispatched backend, which runs with no tape); otherwise it dispatches
+directly, with no ``Function`` in the way. ``method='sharded'`` with a
+gradient raises: its result is a ``DTensor``, and the rule over shards
+belongs with the stream store's sharded placement (ROADMAP queue 1 item
+6b).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.autograd.forward_ad as _fwad
 
-from repro_torch.core import backends
+from repro_torch.core import autodiff, backends
 from repro_torch.core import structure as _structure
 from repro_torch.core.precision import Precision
 
@@ -57,12 +64,32 @@ def as_tensor(x, device=None):
     return torch.as_tensor(x, device=default_device(device))
 
 
-def _check_supported(L, V):
-    if getattr(L, "requires_grad", False) or getattr(V, "requires_grad",
-                                                       False):
+def _needs_rule(L, V) -> bool:
+    """True when ``L`` or ``V`` requires a gradient, or a forward-AD level
+    (``torch.autograd.forward_ad``, ``torch.func.jvp``) is active: the call
+    then goes through the Murray rule. Attribute reads only, so a call
+    with no gradient dispatches as it always did."""
+    if torch.is_grad_enabled() and (L.requires_grad or V.requires_grad):
+        return True
+    return (getattr(_fwad, "_current_level", -1) >= 0
+            or torch._C._functorch.maybe_current_level() is not None)
+
+
+def _run(L, V, *, sigma, method, **kw):
+    """Dispatch, through the Murray rule when ``_needs_rule``."""
+    if not _needs_rule(L, V):
+        return backends.dispatch(L, V, sigma=sigma, method=method, **kw)
+    if method == "sharded":
         raise NotImplementedError(
-            "gradients through the update are not ported yet (ROADMAP "
-            "queue 1 item 4, the Murray rule as a torch.autograd.Function)")
+            "gradients through method='sharded' come with the stream "
+            "store's sharded placement (ROADMAP queue 1 item 6b)")
+
+    def impl(L, V, sigma):
+        return backends.dispatch(L, V, sigma=sigma, method=method, **kw)
+
+    if _structure.is_factor_storage(L):
+        return autodiff.diffable_update_structured(impl, sigma, L, V)
+    return autodiff.diffable_update(impl, sigma, L, V)
 
 
 def _check_method_sigma(method, sigma):
@@ -107,7 +134,6 @@ def chol_update(
       The modified upper-triangular factor.
     """
     _check_method_sigma(method, sigma)
-    _check_supported(L, V)
     L = as_tensor(L, device)
     V = as_tensor(V, L.device)
     if _structure.is_factor_storage(L):
@@ -124,9 +150,9 @@ def chol_update(
         V = V[:, None]
     if V.dtype != L.dtype:
         V = V.to(L.dtype)  # the factor's dtype wins on every backend
-    return backends.dispatch(L, V, sigma=sigma, method=method, panel=panel,
-                             interpret=interpret,
-                             precision=Precision.parse(precision), **opts)
+    return _run(L, V, sigma=sigma, method=method, panel=panel,
+                interpret=interpret, precision=Precision.parse(precision),
+                **opts)
 
 
 def chol_update_batched(
@@ -161,7 +187,6 @@ def chol_update_batched(
       (B, n, n) stacked updated factors.
     """
     _check_method_sigma(method, sigma)
-    _check_supported(L, V)
     L = as_tensor(L, device)
     V = as_tensor(V, L.device)
     structure = getattr(L, "structure", "dense")
@@ -187,9 +212,9 @@ def chol_update_batched(
     method = backends.resolve(method, n=n, panel=panel,
                               interpret=interpret, device=L.device,
                               structure=structure)
-    return backends.dispatch(L, V, sigma=sigma, method=method, panel=panel,
-                             interpret=interpret,
-                             precision=Precision.parse(precision), **opts)
+    return _run(L, V, sigma=sigma, method=method, panel=panel,
+                interpret=interpret, precision=Precision.parse(precision),
+                **opts)
 
 
 def chol_downdate(L, V, **kw):

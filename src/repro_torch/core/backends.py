@@ -38,9 +38,10 @@ from repro_torch.obs import metrics as obs_metrics
 # Pallas-capable kinds, so routing under a faked kind matches it.
 PALLAS_DEVICE_KINDS = ("tpu", "gpu", "cuda", "rocm")
 
-#: Valid ``lowering=`` values. The port has one lowering of the fused chain
-#: (the CUDA kernel with its plain version); 'mosaic' is the TPU spec.
-LOWERINGS = ("auto", "portable")
+#: Valid ``lowering=`` values, the JAX package's. The port has one fused
+#: chain (the CUDA kernel, its plain version on the CPU) for both specs;
+#: the requested lowering labels its launches, as in the JAX package.
+LOWERINGS = ("auto", "mosaic", "portable")
 
 # Environment overrides, as in the JAX package: REPRO_FAKE_DEVICE_KIND
 # makes routing see a chosen device kind; REPRO_FORCE_INTERPRET=1 pins the
@@ -62,12 +63,15 @@ def device_kind(device=None) -> str:
 
 
 def resolve_lowering(lowering: Optional[str] = None) -> str:
-    """Map a ``lowering`` request to the port's one lowering, 'portable'."""
-    if lowering in (None, "auto", "portable"):
+    """Map a ``lowering`` request to a concrete one: 'mosaic' and
+    'portable' as given, None/'auto' to 'portable'. Both run the same
+    kernel and give the same result; the name labels the launch."""
+    if lowering in ("mosaic", "portable"):
+        return lowering
+    if lowering in (None, "auto"):
         return "portable"
     raise ValueError(
-        f"lowering must be one of {LOWERINGS} (or None), got {lowering!r}; "
-        "'mosaic' is the TPU-only spec of the JAX package")
+        f"lowering must be one of {LOWERINGS} (or None), got {lowering!r}")
 
 
 def default_interpret(device=None) -> bool:

@@ -28,12 +28,15 @@ device is the mesh's: ``"cuda"`` (the current CUDA device) or ``"cpu"``.
 Several ranks may share one card; with the ``gloo`` backend the blocks that
 cross between ranks are staged through host memory explicitly.
 
-A tuple ``axis`` linearises its mesh dims row-major, in the mesh's own dim
-order (the order a ``DTensor`` shards one tensor dim over several mesh
-dims), so a tuple must list its names in that order.
+A tuple ``axis`` linearises its mesh dims row-major in the order it lists
+them, as the JAX package does; a ``DTensor`` shards one tensor dim over
+several mesh dims in the mesh's own dim order, so a tuple out of that
+order shards over the mesh with its dims permuted into the tuple's order
+(``_layout``), which is the result's ``device_mesh``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Union
 
@@ -57,31 +60,51 @@ def axis_tuple(axis: AxisNames):
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def _mesh_dims(mesh, axes):
-    """Mesh dim indices of ``axes``; raises unless each is a dim name of
-    ``mesh`` and they come in the mesh's order."""
+def _layout(mesh, axes):
+    """``(mesh', dims)``: the mesh to shard ``axes`` over and their dim
+    indices in it, ascending. Shards are numbered row-major over ``axes`` in
+    the order given (the JAX package's ``_combined_axis_index``), and a
+    ``DTensor`` sharded over several mesh dims numbers them in the mesh's
+    order; so for a tuple axis out of the mesh's order, ``mesh'`` is the
+    mesh with those dims permuted into the axis's order (built once per
+    mesh and order: building it creates process groups, a collective every
+    rank makes). Raises unless each axis is a distinct dim of ``mesh``."""
     names = tuple(mesh.mesh_dim_names or ())
     missing = [ax for ax in axes if ax not in names]
-    if missing or not axes:
-        raise ValueError(f"axis {axes} must name dims of the mesh, whose "
-                         f"dims are {names}")
+    if missing or not axes or len(set(axes)) != len(axes):
+        raise ValueError(f"axis {axes} must name dims of the mesh, each "
+                         f"once; its dims are {names}")
     dims = [names.index(ax) for ax in axes]
-    if dims != sorted(set(dims)):
-        raise ValueError(f"a tuple axis must list distinct mesh dims in the "
-                         f"mesh's order {names}, got {axes}")
-    return dims
+    slots = sorted(dims)
+    if dims == slots:
+        return mesh, dims
+    perm = list(range(mesh.ndim))
+    for slot, d in zip(slots, dims):
+        perm[slot] = d
+    return _permuted(mesh, tuple(perm)), slots
+
+
+@functools.cache
+def _permuted(mesh, perm):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = mesh.mesh_dim_names
+    return DeviceMesh(mesh.device_type, mesh.mesh.permute(perm),
+                      mesh_dim_names=tuple(names[p] for p in perm))
 
 
 def n_shards(mesh, axis: AxisNames) -> int:
     """Number of column shards along ``axis`` (a product over a tuple)."""
-    return math.prod(mesh.size(d) for d in _mesh_dims(mesh, axis_tuple(axis)))
+    mesh, dims = _layout(mesh, axis_tuple(axis))
+    return math.prod(mesh.size(d) for d in dims)
 
 
 def shard_index(mesh, axis: AxisNames) -> int:
     """This rank's shard index along ``axis``: its coordinates on the
-    axis's mesh dims, linearised row-major."""
+    axis's mesh dims, linearised row-major in the axis's order."""
+    mesh, dims = _layout(mesh, axis_tuple(axis))
     idx = 0
-    for d in _mesh_dims(mesh, axis_tuple(axis)):
+    for d in dims:
         idx = idx * mesh.size(d) + mesh.get_local_rank(d)
     return idx
 
@@ -179,6 +202,7 @@ def shard(L, mesh, axis: AxisNames = "model"):
     from torch.distributed.tensor import DTensor
 
     axes = axis_tuple(axis)
+    mesh, _ = _layout(mesh, axes)
     want = _placements(mesh, axes, L.ndim)
     if is_sharded(L):
         if L.device_mesh == mesh and list(L.placements) == want:
@@ -232,7 +256,8 @@ def chol_update_sharded(
       strategy: 'fused' (one ``panel_apply_sharded`` launch per shard,
         default), 'gemm' (per-panel transform GEMM) or 'paper'
         (element-wise).
-      lowering: None/'auto'/'portable', the port's one lowering.
+      lowering: None/'auto'/'portable'/'mosaic' (one kernel; the name
+        labels the panel-phase launches).
       interpret: None picks by device; True asks for the plain versions,
         which run on CPU tensors only (on CUDA it raises).
       precision: storage/accum policy (DESIGN.md §8). The shard, the
@@ -253,10 +278,10 @@ def chol_update_sharded(
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}, got "
                          f"{strategy!r}")
-    resolve_lowering(lowering)
+    lowering = resolve_lowering(lowering)
     precision = Precision.parse(precision)
     axes = axis_tuple(axis)
-    dims = _mesh_dims(mesh, axes)
+    mesh, dims = _layout(mesh, axes)
     batched = L.ndim == 3
     n = L.shape[-1]
     V = gather(V)
@@ -304,7 +329,8 @@ def chol_update_sharded(
     for g in passes:
         vt_g = vt[..., g, :].contiguous()
         if strategy == "fused":
-            L_loc = _sharded_update_fused(L_loc, vt_g, panel=kp, **kw)
+            L_loc = _sharded_update_fused(L_loc, vt_g, panel=kp,
+                                          lowering=lowering, **kw)
         else:
             L_loc = _sharded_update_perpanel(L_loc.clone(), vt_g, panel=kp,
                                              strategy=strategy, **kw)
@@ -369,7 +395,7 @@ def _chain_phase(L_loc, vt, *, sigma, panel, w_loc, me, mesh, dims, acc):
 
 
 def _sharded_update_fused(L_loc, vt, *, sigma, panel, w_loc, me, mesh, dims,
-                          acc):
+                          acc, lowering):
     """Chain phase, then the whole panel phase in ONE launch per shard."""
     from repro_torch.kernels import sharded as _sharded
 
@@ -378,7 +404,8 @@ def _sharded_update_fused(L_loc, vt, *, sigma, panel, w_loc, me, mesh, dims,
         dims=dims, acc=acc)
     return _sharded.panel_apply_sharded(
         L_loc, T_stack, D_stack, vt_stack, tile_off=me * (w_loc // panel),
-        panel=panel, accum_dtype=acc, interpret=not L_loc.is_cuda)
+        panel=panel, accum_dtype=acc, interpret=not L_loc.is_cuda,
+        lowering=lowering)
 
 
 def _sharded_update_perpanel(L_loc, vt, *, sigma, panel, w_loc, me, mesh,
@@ -408,7 +435,8 @@ def _sharded_update_perpanel(L_loc, vt, *, sigma, panel, w_loc, me, mesh,
 
 def _owned_diagonal(L, mesh, axes):
     """The diagonal entries of the columns this rank owns of the sharded
-    factor ``L``, ``(..., w_loc)``, read shard-locally."""
+    factor ``L``, ``(..., w_loc)``, read shard-locally (``mesh`` laid out
+    by ``_layout``)."""
     loc = shard(L, mesh, axes).to_local()
     w = loc.shape[-1]
     j = torch.arange(w, device=loc.device)
@@ -421,9 +449,10 @@ def diagonal(L, *, mesh, axis: AxisNames = "model"):
     ``all_gather`` per mesh dim of the axis joins them, O(n) bytes; the
     factor itself is never gathered."""
     axes = axis_tuple(axis)
+    mesh, dims = _layout(mesh, axes)
     d = _owned_diagonal(L, mesh, axes)
     # Innermost dim first: the shard index is row-major over the dims.
-    for dim in reversed(_mesh_dims(mesh, axes)):
+    for dim in reversed(dims):
         d = _all_gather_last(d, mesh, dim)
     return d
 
@@ -433,9 +462,10 @@ def diag_verdict(L, *, mesh, axis: AxisNames = "model"):
     factor ``L`` finite and positive. Each rank checks the entries of the
     columns it owns; a MIN all_reduce over the axis makes one verdict."""
     axes = axis_tuple(axis)
+    mesh, dims = _layout(mesh, axes)
     d = _owned_diagonal(L, mesh, axes)
     ok = (torch.isfinite(d) & (d > 0)).all(dim=-1).to(torch.int32)
-    _all_reduce(ok, mesh, _mesh_dims(mesh, axes), op=dist.ReduceOp.MIN)
+    _all_reduce(ok, mesh, dims, op=dist.ReduceOp.MIN)
     return ok.bool()
 
 
@@ -444,6 +474,7 @@ def where_sharded(ok, new, old, *, mesh, axis: AxisNames = "model"):
     shard; both are sharded alike first."""
     from torch.distributed.tensor import DTensor
 
+    mesh, _ = _layout(mesh, axis_tuple(axis))
     new, old = shard(new, mesh, axis), shard(old, mesh, axis)
     mask = ok[..., None, None] if new.ndim == 3 else ok
     loc = torch.where(mask, new.to_local(), old.to_local())

@@ -52,7 +52,7 @@ class CholFactor:
         plain version (CPU tensors only).
       precision: storage/accum dtype policy (``Precision``, a preset string
         like 'bf16', or None = the factor's own dtype).
-      lowering: fused lowering, None/'auto'/'portable'.
+      lowering: fused lowering, None/'auto'/'portable'/'mosaic'.
       mesh, axis: the ``DeviceMesh`` and the dim name (or tuple of names)
         the 'sharded' backend shards the columns over (None otherwise),
         for a factor or a fleet.

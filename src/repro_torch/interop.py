@@ -6,7 +6,9 @@ builds the port's ``CholFactor`` from that state as numpy values, and
 ``factor_to_numpy`` gives it back, so both packages can be driven from the
 same state. A block-tridiagonal factor's state is its ``(diag, off)`` block
 stacks (``BlockTriDiagStorage``), one factor or a fleet: pass the pair as
-``data``, or use ``storage_from_numpy`` / ``storage_to_numpy``. A factor
+``data``, or use ``storage_from_numpy`` / ``storage_to_numpy``. An optimizer's state
+(``cholesky_precond``, ``adamw``, ``sgd``) crosses with
+``optimizer_state_from_numpy`` / ``optimizer_state_to_numpy``. A factor
 of the ``sharded`` backend takes a ``DeviceMesh`` whose dim names are the
 JAX mesh's axis names: its columns are sharded over ``axis`` on the way in
 and gathered whole on the way out (on every rank). Nothing of the JAX
@@ -25,9 +27,8 @@ from repro_torch.core.factor import CholFactor
 from repro_torch.core.precision import Precision
 from repro_torch.core.structure import BlockTriDiagStorage
 
-# The JAX package's lowerings: 'mosaic' is its TPU-only spec; the port's
-# one lowering computes the same chain.
-_JAX_LOWERINGS = (None, "auto", "mosaic", "portable")
+# The JAX package's lowerings, which the port takes as they are.
+_JAX_LOWERINGS = (None,) + backends.LOWERINGS
 
 
 def _precision_from(spec) -> Optional[Precision]:
@@ -105,7 +106,7 @@ def factor_from_numpy(data, *, panel: int = 256, backend: str = "auto",
     return CholFactor(state, panel=panel,
                       backend=backend, interpret=interpret,
                       precision=_precision_from(precision),
-                      lowering=None if lowering == "mosaic" else lowering,
+                      lowering=lowering,
                       mesh=mesh, axis=axis)
 
 
@@ -132,3 +133,72 @@ def factor_to_numpy(factor: CholFactor):
     meta = dict(panel=factor.panel, backend=factor.backend, precision=prec,
                 lowering=factor.lowering, axis=factor.axis)
     return data, meta
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state.
+# ---------------------------------------------------------------------------
+
+
+def _array_to_numpy(x):
+    x = x.detach()
+    return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+
+
+def optimizer_state_from_numpy(state, *, device=None):
+    """The port's optimizer state from the JAX package's, as numpy.
+
+    ``state`` is the JAX state dict with every array as numpy: ``step``,
+    the moment trees (``m``, ``v``; ``mu`` for sgd) and, for
+    ``cholesky_precond``, ``factors``: a tree holding, at each parameter,
+    None or ``{"c": (data, meta), "ring": array}`` (``ring`` with a window
+    only), ``(data, meta)`` as ``factor_to_numpy`` gives them. Trees are
+    nested dicts and lists. ``device`` defaults to CUDA.
+    """
+    from repro_torch.core.api import default_device
+    from repro_torch.optim.base import flatten_up_to, tree_map, unflatten
+
+    dev = default_device(device)
+    out = {"step": int(np.asarray(state["step"]))}
+    moments = [k for k in ("m", "v", "mu") if k in state]
+    for key in moments:
+        out[key] = tree_map(lambda a: _to_tensor(a, dev), state[key])
+    if "factors" in state:
+        def fac(sub):
+            if sub is None:
+                return None
+            data, meta = sub["c"]
+            new = {"c": factor_from_numpy(data, device=dev, **meta)}
+            if "ring" in sub:
+                new["ring"] = _to_tensor(sub["ring"], dev)
+            return new
+
+        shape = state[moments[0]]
+        out["factors"] = unflatten(shape, [
+            fac(sub) for sub in flatten_up_to(shape, state["factors"])])
+    return out
+
+
+def optimizer_state_to_numpy(state):
+    """The inverse of ``optimizer_state_from_numpy``: the port's state as
+    numpy arrays (bf16 widened to fp32, exactly), each factor as
+    ``factor_to_numpy``'s ``(data, meta)``."""
+    from repro_torch.optim.base import flatten_up_to, tree_map, unflatten
+
+    out = {"step": np.asarray(state["step"], np.int32)}
+    moments = [k for k in ("m", "v", "mu") if k in state]
+    for key in moments:
+        out[key] = tree_map(_array_to_numpy, state[key])
+    if "factors" in state:
+        def fac(sub):
+            if sub is None:
+                return None
+            new = {"c": factor_to_numpy(sub["c"])}
+            if "ring" in sub:
+                new["ring"] = _array_to_numpy(sub["ring"])
+            return new
+
+        shape = state[moments[0]]
+        out["factors"] = unflatten(shape, [
+            fac(sub) for sub in flatten_up_to(shape, state["factors"])])
+    return out

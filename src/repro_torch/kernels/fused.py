@@ -131,6 +131,7 @@ def _lib():
 
 def fused_chain_cuda(L_pad, vt, *, sigma: int, panel: int,
                      panel_apply: str = "gemm", accum_dtype=None,
+                     lowering: str = "portable",
                      _groups: Optional[int] = None):
     """Launch the CUDA fused-chain kernel: ONE launch for the whole fleet.
 
@@ -205,14 +206,14 @@ def fused_chain_cuda(L_pad, vt, *, sigma: int, panel: int,
     check_rc(rc, lib, "fused_chain")
     LAUNCHES.inc()
     _obs_metrics.counter("repro.kernels.launches", module="fused",
-                         kernel="fused_chain", lowering="portable",
+                         kernel="fused_chain", lowering=lowering,
                          panel=panel).inc()
     return out
 
 
 def fused_chain(L_pad, vt, *, sigma: int, panel: int,
                 panel_apply: str = "gemm", accum_dtype=None,
-                interpret: bool = False):
+                interpret: bool = False, lowering: str = "portable"):
     """The chain walk on the tensors' device: plain on the CPU, the kernel
     on CUDA. ``interpret=True`` on a CUDA tensor raises instead of quietly
     running the plain version.
@@ -234,7 +235,8 @@ def fused_chain(L_pad, vt, *, sigma: int, panel: int,
             out = fused_chain_cuda(
                 out, vt if len(groups) == 1 else vt[:, g].contiguous(),
                 sigma=sigma, panel=kernel_panel(panel),
-                panel_apply=panel_apply, accum_dtype=accum_dtype)
+                panel_apply=panel_apply, accum_dtype=accum_dtype,
+                lowering=lowering)
         return out
     return fused_chain_plain(L_pad, vt, sigma=sigma, panel=panel,
                              panel_apply=panel_apply, accum_dtype=accum_dtype)
@@ -264,7 +266,8 @@ def chol_update_fused(
         paper's element-wise rotation chain).
       grid_mode: 'indexed' or 'rect'; changes only ``grid_steps``
         accounting, the result is identical.
-      lowering: None/'auto'/'portable'; 'mosaic' (the TPU spec) raises.
+      lowering: None/'auto'/'portable'/'mosaic': one kernel and one result;
+        the resolved name labels the launch counter.
       interpret: None picks by device (plain version on the CPU, kernel on
         CUDA). True on a CUDA tensor raises.
       precision: storage/accum policy (``Precision``, 'bf16', or None).
@@ -281,7 +284,7 @@ def chol_update_fused(
         raise ValueError(f"grid_mode must be one of {GRID_MODES}, got {grid_mode!r}")
     from repro_torch.core import backends, blocked
 
-    backends.resolve_lowering(lowering)
+    lowering = backends.resolve_lowering(lowering)
     if interpret is None:
         interpret = backends.default_interpret(L.device)
     precision = Precision.parse(precision)
@@ -298,7 +301,8 @@ def chol_update_fused(
     L_pad, V_pad, n = blocked._pad_to_panels(L, V, panel)
     out = fused_chain(L_pad.contiguous(), V_pad.mT.contiguous(), sigma=sigma,
                       panel=panel, panel_apply=panel_apply,
-                      accum_dtype=accum_dtype, interpret=bool(interpret))
+                      accum_dtype=accum_dtype, interpret=bool(interpret),
+                      lowering=lowering)
     # Only the upper block-triangle is walked; triu drops the rest.
     out = torch.triu(out)[..., :n, :n]
     return out[0] if single else out

@@ -102,7 +102,8 @@ def _lib():
 
 
 def panel_apply_sharded_cuda(L_loc, T_stack, D_stack, vt_stack, *,
-                             tile_off: int, panel: int, accum_dtype=None):
+                             tile_off: int, panel: int, accum_dtype=None,
+                             lowering: str = "portable"):
     """Launch the CUDA panel-phase kernel: ONE launch for a shard or a
     fleet shard. Same arguments and result as the plain version (``T_rr``
     lower triangular, as ``diag_block`` emits it); ``T_stack`` may come at
@@ -145,7 +146,8 @@ def panel_apply_sharded_cuda(L_loc, T_stack, D_stack, vt_stack, *,
     check_rc(rc, lib, "panel_apply_sharded")
     LAUNCHES.inc()
     _obs_metrics.held_counter("repro.kernels.launches", module="sharded",
-                              kernel="panel_apply_sharded", panel=panel).inc()
+                              kernel="panel_apply_sharded", panel=panel,
+                              lowering=lowering).inc()
     return out
 
 
@@ -168,14 +170,15 @@ def panel_apply_sharded(L_loc, T_stack, D_stack, vt_stack, *, tile_off: int,
       accum_dtype: accumulation dtype (None: at least fp32).
       interpret: None picks by device; True asks for the plain version,
         which runs on CPU tensors only (on a CUDA tensor it raises).
-      lowering: None/'auto'/'portable', the port's one lowering.
+      lowering: None/'auto'/'portable'/'mosaic': one kernel; the resolved
+        name labels the launch counter.
 
     Returns:
       The updated shard, same shape and dtype as ``L_loc``.
     """
     from repro_torch.core.backends import default_interpret, resolve_lowering
 
-    resolve_lowering(lowering)
+    lowering = resolve_lowering(lowering)
     if interpret is None:
         interpret = default_interpret(L_loc.device)
     if L_loc.is_cuda:
@@ -186,7 +189,8 @@ def panel_apply_sharded(L_loc, T_stack, D_stack, vt_stack, *, tile_off: int,
                 "interpret")
         return panel_apply_sharded_cuda(L_loc, T_stack, D_stack, vt_stack,
                                         tile_off=tile_off, panel=panel,
-                                        accum_dtype=accum_dtype)
+                                        accum_dtype=accum_dtype,
+                                        lowering=lowering)
     return panel_apply_sharded_plain(L_loc, T_stack, D_stack, vt_stack,
                                      tile_off=tile_off, panel=panel,
                                      accum_dtype=accum_dtype)

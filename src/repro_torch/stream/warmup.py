@@ -85,7 +85,8 @@ class WarmupReport:
         included); the same timings land in the registry histogram
         ``repro.stream.compile_seconds{step=...,sharded=0}``.
       graphs: CUDA graphs captured by this call (0 on the CPU).
-      lowering: the fused-kernel lowering the steps run, 'portable'.
+      lowering: the fused-kernel lowering the steps run ('portable' or
+        'mosaic', one kernel).
     """
 
     compiled: int = 0

@@ -328,8 +328,11 @@ def test_routing_keys_on_the_tensor_device(monkeypatch):
 def test_lowering_choices():
     for ok in (None, "auto", "portable"):
         assert backends.resolve_lowering(ok) == "portable"
-    with pytest.raises(ValueError, match="'auto', 'portable'"):
-        backends.resolve_lowering("mosaic")
+    # The JAX package's TPU spec is taken as it is (one kernel, its name).
+    assert backends.resolve_lowering("mosaic") == "mosaic"
+    assert backends.LOWERINGS == jbackends.LOWERINGS
+    with pytest.raises(ValueError, match="'auto', 'mosaic', 'portable'"):
+        backends.resolve_lowering("triton")
 
 
 def test_dispatch_counts_modeled_bytes_in_the_ports_registry():
@@ -373,13 +376,31 @@ def test_api_validation_and_dtype_pin():
 
 
 def test_requires_grad_raises_on_every_path():
+    """An input that requires a gradient used to raise on every path; now
+    ``auto``, ``fused``, ``reference`` and the batched path return
+    gradients (the Murray rule, ``core.autodiff``), which agree with each
+    other, and only ``method='sharded'`` raises, naming ROADMAP queue 1
+    item 6b."""
     L, V = problem(8, 1)
-    Lg = t(L).requires_grad_(True)
+    grads = {}
     for method in ("auto", "fused", "reference"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            api.chol_update(Lg, t(V), method=method)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        api.chol_update_batched(t(L[None]), t(V[None]).requires_grad_(True))
+        Lg = t(L).requires_grad_(True)
+        out = api.chol_update(Lg, t(V), method=method)
+        assert out.requires_grad
+        torch.sum(out ** 2).backward()
+        grads[method] = Lg.grad
+        assert bool(torch.isfinite(Lg.grad).all())
+    for method in ("auto", "fused"):
+        torch.testing.assert_close(grads[method], grads["reference"],
+                                   rtol=0, atol=tol_for(np.float32, 8))
+    Vg = t(V[None]).requires_grad_(True)
+    api.chol_update_batched(t(L[None]), Vg).sum().backward()
+    assert Vg.grad.shape == (1, 8, 1) and bool(torch.isfinite(Vg.grad).all())
+    for fn, args in ((api.chol_update, (t(L).requires_grad_(True), t(V))),
+                     (api.chol_update_batched,
+                      (t(L[None]), t(V[None]).requires_grad_(True)))):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+            fn(*args, method="sharded", mesh=object())
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
@@ -413,8 +434,9 @@ def test_import_leaves_no_jax_or_reference_module():
         "assert {'repro_torch.kernels.ops', 'repro_torch.core.structure',\n"
         "        'repro_torch.kernels.blocktridiag', 'repro_torch.stream',\n"
         "        'repro_torch.stream.store', 'repro_torch.stream.durability',\n"
-        "        'repro_torch.checkpoint', 'repro_torch.obs.tracing'\n"
-        "        } <= set(names), names\n"
+        "        'repro_torch.checkpoint', 'repro_torch.obs.tracing',\n"
+        "        'repro_torch.core.autodiff', 'repro_torch.optim',\n"
+        "        'repro_torch.optim.cholesky_precond'} <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'repro', 'ml_dtypes')]\n"
         "print(bad)\n"

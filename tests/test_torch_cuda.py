@@ -1238,3 +1238,145 @@ def test_stream_capture_holds_the_collector_off(cuda):
     st.warmup()
     assert len(seen) == st.steps.graphs > 0 and not any(seen)
     assert gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the update and the optimizer on the card.
+# ---------------------------------------------------------------------------
+
+
+def grad_loss(x):
+    return (x.float().sin() * (0.5 * x.float()).cos()).sum()
+
+
+def kappa2(U):
+    """kappa_2 of the float64 factor(s), the worst member."""
+    s = torch.linalg.svdvals(U.double())
+    return float((s[..., 0] / s[..., -1]).max())
+
+
+def grads_of(fn, *xs):
+    """The output and the gradients of ``grad_loss(fn(*xs))``."""
+    xs = [x.detach().clone().requires_grad_(True) for x in xs]
+    out = fn(*xs)
+    leaves = list(out) if isinstance(out, tuple) else [out]
+    gs = torch.autograd.grad(sum(grad_loss(o) for o in leaves), xs)
+    return [o.detach() for o in leaves], gs
+
+
+@pytest.mark.parametrize("sigma", [1, -1])
+@pytest.mark.parametrize("method", ["fused", "pallas", "pallas_gemm"])
+def test_dense_grad_on_cuda_matches_the_rule_on_cpu(cuda, method, sigma):
+    """The rule around the kernels against the same rule around the plain
+    versions on the CPU: fp32, a B = 2 fleet, n = 96, within the CPU tests'
+    tol_for(fp32, n) kappa_2(L~) relative to the largest CPU gradient. The
+    backward launches no kernel; the forward one a sign block (fused) or
+    the cascade's launches."""
+    n, k, panel = 96, 5, 32
+    L, V = spd(2, n, k, torch.float32, sigma, cuda, seed=3)
+
+    def fn(L, V):
+        return chol_update_batched(L, V, sigma=sigma, method=method,
+                                   panel=panel)
+
+    before = F.LAUNCHES.count + sum(c.count for c in K.LAUNCHES.values())
+    (out,), g_card = grads_of(fn, L, V)
+    torch.cuda.synchronize()
+    after = F.LAUNCHES.count + sum(c.count for c in K.LAUNCHES.values())
+    want = F.launch_count(n, panel, method="fused" if method == "fused"
+                          else "pallas_2phase", k=k)
+    assert after - before == want
+    (out_cpu,), g_cpu = grads_of(fn, L.cpu(), V.cpu())
+    bound = 50 * torch.finfo(torch.float32).eps * n * kappa2(out_cpu)
+    for a, b in zip(g_card, g_cpu):
+        assert a.dtype == torch.float32
+        err = float((a.cpu() - b).abs().max() / b.abs().max())
+        assert err <= bound, (method, err, bound)
+
+
+@pytest.mark.parametrize("sigma", [1, -1])
+def test_structured_grad_on_cuda_matches_the_rule_on_cpu(cuda, sigma):
+    """The blockwise rule around ``btd_chain`` against the plain chain on
+    the CPU: a B = 2 fleet, b = 8, nb = 6, k = 3, fp32, same bound."""
+    S, V = banded(2, 6, 8, 3, torch.float32, sigma, cuda, seed=5)
+
+    def fn(D, O, V):
+        out = chol_update_batched(BlockTriDiagStorage(D, O), V, sigma=sigma,
+                                  method="blocktridiag")
+        return out.diag, out.off
+
+    before = BT.LAUNCHES.count
+    _, g_card = grads_of(fn, S.diag, S.off, V)
+    torch.cuda.synchronize()
+    assert BT.LAUNCHES.count - before == 1
+    outs, g_cpu = grads_of(fn, S.diag.cpu(), S.off.cpu(), V.cpu())
+    dense = BlockTriDiagStorage(*outs).to(torch.float64).to_dense()
+    bound = 50 * torch.finfo(torch.float32).eps * 48 * kappa2(dense)
+    for a, b in zip(g_card, g_cpu):
+        err = float((a.cpu() - b).abs().max() / b.abs().max())
+        assert err <= bound, (err, bound)
+
+
+def test_no_grad_fused_update_is_todays_call(cuda):
+    """With no input requiring a gradient the call dispatches as before:
+    no autograd node, one launch, ``torch.equal`` to the kernel route
+    itself; with a gradient the forward's values are the same; 'mosaic'
+    runs the same kernel, equal bit for bit, its launch labeled so."""
+    from repro_torch.obs import metrics
+
+    L, V = spd(1, 300, 16, torch.float32, 1, cuda, seed=4)
+    L, V = L[0], V[0]
+    before = F.LAUNCHES.count
+    out = api.chol_update(L, V, method="fused")
+    assert out.grad_fn is None and F.LAUNCHES.count == before + 1
+    direct = F.chol_update_fused(L, V)
+    assert torch.equal(out, direct)
+    with_grad = api.chol_update(L, V.clone().requires_grad_(True),
+                                method="fused")
+    assert with_grad.grad_fn is not None
+    assert torch.equal(with_grad.detach(), out)
+    series = dict(module="fused", kernel="fused_chain", lowering="mosaic",
+                  panel=256)
+    m0 = metrics.value("repro.kernels.launches", **series)
+    assert torch.equal(F.chol_update_fused(L, V, lowering="mosaic"), out)
+    assert metrics.value("repro.kernels.launches", **series) == m0 + 1
+
+
+def test_cholesky_precond_step_on_cuda_matches_cpu(cuda, monkeypatch):
+    """Four ``cholesky_precond`` steps (d = 32, other = 48, k = 4, window 2,
+    eps = 1) on the card (the fused kernel) against the same steps on the
+    CPU (its plain version), one sketch draw for both: the bar
+    tests/test_optim.py holds two backends to. Launches: one a step for
+    the update, one for the downdate once the ring is full."""
+    import importlib
+
+    import repro_torch.optim as optim
+
+    cp = importlib.import_module("repro_torch.optim.cholesky_precond")
+    draw = cp.sketch
+    monkeypatch.setattr(
+        cp, "sketch",
+        lambda *a, device, **kw: draw(*a, device="cpu", **kw).to(device))
+    rng = np.random.default_rng(13)
+    gs = [rng.normal(size=(32, 48)).astype(np.float32) for _ in range(4)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        opt = optim.get_optimizer("cholesky_precond", 0.01, rank=4,
+                                  block_size=32, window=2, eps=1.0,
+                                  update_method="fused")
+        params = {"w": torch.zeros((32, 48), device=dev)}
+        state = opt.init(params)
+        before = F.LAUNCHES.count
+        deltas = []
+        for g in gs:
+            upd, state = opt.update({"w": torch.from_numpy(g).to(dev)},
+                                    state, params)
+            deltas.append(upd["w"].cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert F.LAUNCHES.count - before == 4 + 2
+        runs[dev.type] = deltas, state["factors"]["w"]["c"].data.cpu()
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(runs["cuda"][1], runs["cpu"][1], rtol=1e-4,
+                               atol=1e-4)

@@ -133,7 +133,7 @@ def test_interop_round_trip_carries_state_and_metadata():
                            backend=jf.backend, precision="bf16",
                            lowering=jf.lowering, device="cpu")
     assert tf.precision == Precision.parse("bf16")
-    assert tf.lowering is None  # the TPU spec maps to the port's lowering
+    assert tf.lowering == "mosaic"  # taken as it is
     # The JAX factor's own policy object carries across as well.
     assert factor_from_numpy(np.asarray(jf.data), precision=jf.precision,
                              device="cpu").precision == tf.precision

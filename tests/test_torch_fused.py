@@ -200,6 +200,27 @@ def test_ops_per_update_counts_both_applies():
         tfused.ops_per_update(n, P, k, panel_apply="nope")
 
 
+@pytest.mark.parametrize("grid_mode", ["indexed", "rect"])
+@pytest.mark.parametrize("sigma", [1, -1])
+def test_mosaic_lowering_matches_portable_and_jax(grid_mode, sigma):
+    """tests/test_fused.py's portable == mosaic == reference, on the port:
+    'mosaic' runs the one fused chain (its plain version on CPU tensors)
+    and equals 'portable' bit for bit; both agree with the JAX package's
+    mosaic and portable kernels within tol_for."""
+    n, k, panel = 96, 4, 32
+    L, V = problem(n, k, seed=61, sigma=sigma)
+    kw = dict(sigma=sigma, panel=panel, grid_mode=grid_mode)
+    ours = {lw: tfused.chol_update_fused(t(L), t(V), lowering=lw, **kw)
+            for lw in ("mosaic", "portable")}
+    assert torch.equal(ours["mosaic"], ours["portable"])
+    for lw in ("mosaic", "portable"):
+        theirs = np.asarray(jfused.chol_update_fused(
+            jnp.asarray(L), jnp.asarray(V), lowering=lw, interpret=True,
+            **kw))
+        np.testing.assert_allclose(ours[lw].numpy(), theirs,
+                                   atol=tol_for(jnp.float32, n))
+
+
 def test_argument_and_lowering_validation():
     L, V = problem(8, 1)
     with pytest.raises(ValueError, match="sigma"):
@@ -208,9 +229,9 @@ def test_argument_and_lowering_validation():
         tfused.chol_update_fused(t(L), t(V), panel_apply="nope")
     with pytest.raises(ValueError, match="grid_mode"):
         tfused.chol_update_fused(t(L), t(V), grid_mode="nope")
-    with pytest.raises(ValueError, match="'auto', 'portable'"):
-        tfused.chol_update_fused(t(L), t(V), lowering="mosaic")
-    for lowering in (None, "auto", "portable"):
+    with pytest.raises(ValueError, match="'auto', 'mosaic', 'portable'"):
+        tfused.chol_update_fused(t(L), t(V), lowering="triton")
+    for lowering in (None, "auto", "portable", "mosaic"):
         tfused.chol_update_fused(t(L), t(V), panel=4, lowering=lowering)
 
 
@@ -221,8 +242,10 @@ def test_cuda_wrapper_checks_before_it_launches():
     L = torch.eye(n)[None]
     vt = torch.zeros(1, k, n)
     before = tfused.LAUNCHES.count
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tfused.fused_chain_cuda(L, vt, sigma=1, panel=P)
+    for lowering in ("portable", "mosaic"):  # the launch's label
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tfused.fused_chain_cuda(L, vt, sigma=1, panel=P,
+                                    lowering=lowering)
     with pytest.raises(ValueError, match=r"k <= 32"):
         tfused.fused_chain_cuda(torch.eye(64)[None], torch.zeros(1, 33, 64),
                                 sigma=1, panel=P)

@@ -132,7 +132,10 @@ def test_panel_kernel_wrapper_rules():
     assert tk.LAUNCHES.count == l0
     with pytest.raises(ValueError, match="lowering"):
         tk.panel_apply_sharded(L, T, D, vt, tile_off=0, panel=8,
-                               lowering="mosaic")
+                               lowering="triton")
+    with pytest.raises(ValueError, match="CUDA tensors"):  # the label
+        tk.panel_apply_sharded_cuda(L, T, D, vt, tile_off=0, panel=8,
+                                    lowering="mosaic")
     with pytest.raises(ValueError, match="takes T_stack"):
         tk.panel_apply_sharded(L, T[:1], D, vt, tile_off=0, panel=8)
     assert tk.launch_count_sharded(5120, 256, strategy="fused") == \
@@ -252,7 +255,7 @@ def test_validation_errors(mesh):
                                         panel=PANEL)
     with pytest.raises(ValueError, match="lowering"):
         distributed.chol_update_sharded(L, V, mesh=mesh, panel=PANEL,
-                                        lowering="mosaic")
+                                        lowering="triton")
     # 'auto' never picks the collective backend.
     from repro_torch.core import backends
 

@@ -6,7 +6,8 @@ output to an ``.npz``; ONE spawn of four gloo ranks (a ``file://`` store
 in the test's temporary directory, never a TCP port) computes the port's
 outputs, gathered whole on rank 0; the parent compares them, case by
 case: a single mesh axis of four ranks, a 2 x 2 mesh with
-``axis=("data", "model")`` and with ``axis="model"`` (two shards, each
+``axis=("data", "model")``, with the reversed ``("model", "data")`` (the
+mesh's dims out of order) and with ``axis="model"`` (two shards, each
 held by two ranks), update and downdate, a B = 3 fleet, bf16 storage,
 the feasibility guard, whose verdict crosses the ranks, and the diagonal
 read shard by shard. Tolerances as in
@@ -46,6 +47,7 @@ CASES = [
     ("m22_fused_down", "m22", COMBINED, "fused", -1, False, None),
     ("m22_paper_up", "m22", COMBINED, "paper", 1, False, None),
     ("m22_model_fused_up", "m22", "model", "fused", 1, False, None),
+    ("m22_rev_fused_up", "m22", ["model", "data"], "fused", 1, False, None),
     ("m4_fleet_fused_up", "m4", "model", "fused", 1, True, None),
     ("m22_fleet_gemm_down", "m22", COMBINED, "gemm", -1, True, None),
     ("m4_bf16_fused_up", "m4", "model", "fused", 1, False, "bf16"),
@@ -153,7 +155,19 @@ def _rank_main(rank, d):
             assert walks == (strategy == "fused"), (name, walks)
             assert r.to_local().shape[-1] == N // distributed.n_shards(
                 mesh, axis), name
-            out[name] = distributed.gather(r).float().numpy()
+            full = distributed.gather(r)
+            # JAX's layout: shard index row-major over the axis's dims in
+            # the order it lists them, whatever the mesh's order.
+            names = mesh.mesh_dim_names
+            me = 0
+            for ax in distributed.axis_tuple(axis):
+                dim = names.index(ax)
+                me = me * mesh.size(dim) + mesh.get_local_rank(dim)
+            w = r.to_local().shape[-1]
+            assert distributed.shard_index(mesh, axis) == me, name
+            assert torch.equal(r.to_local(),
+                               full[..., me * w:(me + 1) * w]), name
+            out[name] = full.float().numpy()
             # The diagonal shard by shard, joined in the shards' order.
             out[name + "_diag"] = distributed.diagonal(
                 r, mesh=mesh, axis=axis).float().numpy()
