@@ -35,6 +35,13 @@ user calls, and holds every kernel against its plain torch version:
   weight matrices of one llama3.2-3b layer, its batched factors taking
   scale, update, downdate (the fused chain) and solve every step, held to
   the float64 statistics they should hold.
+* the stream store's sharded placement and sharded gradients (path 3k):
+  the stream path's dense runs over ``FactorStore(backend='sharded')`` on
+  the one-rank mesh (CUDA graphs of ``diag_block`` and
+  ``panel_apply_sharded``, the same five checks), gradients through
+  ``method='sharded'`` at n = 5120 and on the B = 64 fleet, and, in the
+  four-rank spawn, a sharded store's traffic, checkpoints restored across
+  rank counts and gradients, each against one rank.
 
 Builds every kernel from the sources in ``src/repro_torch/kernels/csrc``,
 checks the launches each path takes (counts set to 0 just before a path
@@ -279,13 +286,17 @@ def _rank_kernel_checks(torch, inp, mesh, P=256):
     return out
 
 
-def _sharded_rank(rank, d):
-    """One of four ranks sharing the card (gloo, a ``file://`` store in
-    ``d``): the sharded driver through the entry points on the inputs in
-    ``d``, then its kernels against their plain versions on the rank's own
-    shard (``_rank_kernel_checks``). Rank 0 saves the gathered results;
+def _sharded_rank(d, root, seed):
+    """One of four gloo ranks sharing the card (``run_gloo_ranks``): the
+    sharded driver through the entry points on the inputs in ``d``, then
+    its kernels against their plain versions on the rank's own shard
+    (``_rank_kernel_checks``), then path 3k (iii) (the sharded store's
+    traffic and its checkpoint into ``root``/ckpt4, the one-rank
+    checkpoint ``root``/ckpt1 restored onto the four ranks, gradients
+    through ``method='sharded'``). Rank 0 saves the gathered results;
     every rank saves the kernel launches each case took on it and its
     kernel checks. Any error ends the process non-zero."""
+    import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -293,77 +304,73 @@ def _sharded_rank(rank, d):
     from repro_torch.core import api, distributed
     from repro_torch.kernels import cholupdate as K
     from repro_torch.kernels import sharded as SH
+    from repro_torch.stream import restore_service
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{d}/store4",
-                            world_size=4, rank=rank,
-                            timeout=timedelta(seconds=120))
-    try:
-        mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("model",))
-        inp = torch.load(f"{d}/inputs.pt", map_location="cuda:0")
-        counters = {"panel_apply_sharded": SH.LAUNCHES}
-        counters.update(K.LAUNCHES)
-        out, counts = {}, {}
-        for name, strategy, fleet, prec in SHARDED_CASES:
-            before = {c: x.count for c, x in counters.items()}
-            if fleet:
-                r = api.chol_update_batched(
-                    inp["Lf"], inp["Vf"], method="sharded", mesh=mesh,
-                    panel=256, strategy=strategy, precision=prec)
-            else:
-                r = api.chol_update(inp["L"], inp["V"], method="sharded",
-                                    mesh=mesh, panel=256, strategy=strategy)
-            torch.cuda.synchronize()
-            counts[name] = {c: x.count - before[c]
-                            for c, x in counters.items()
-                            if x.count != before[c]}
-            full = distributed.gather(r)
-            if rank == 0:
-                out[name] = full.cpu()
-            del r, full
-        checks = _rank_kernel_checks(torch, inp, mesh)
+    rank = dist.get_rank()
+    mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("model",))
+    inp = torch.load(f"{d}/inputs.pt", map_location="cuda:0")
+    counters = {"panel_apply_sharded": SH.LAUNCHES}
+    counters.update(K.LAUNCHES)
+    out, counts = {}, {}
+    for name, strategy, fleet, prec in SHARDED_CASES:
+        before = {c: x.count for c, x in counters.items()}
+        if fleet:
+            r = api.chol_update_batched(
+                inp["Lf"], inp["Vf"], method="sharded", mesh=mesh,
+                panel=256, strategy=strategy, precision=prec)
+        else:
+            r = api.chol_update(inp["L"], inp["V"], method="sharded",
+                                mesh=mesh, panel=256, strategy=strategy)
+        torch.cuda.synchronize()
+        counts[name] = {c: x.count - before[c]
+                        for c, x in counters.items()
+                        if x.count != before[c]}
+        full = distributed.gather(r)
         if rank == 0:
-            torch.save(out, f"{d}/results.pt")
-        with open(f"{d}/counts{rank}.json", "w") as f:
-            json.dump({"counts": counts, "checks": checks}, f)
-    finally:
-        dist.destroy_process_group()
+            out[name] = full.cpu()
+        del r, full
+    checks = _rank_kernel_checks(torch, inp, mesh)
+    if rank == 0:
+        torch.save(out, f"{d}/results.pt")
+    fleet, verdicts, pending, mode = small_store_traffic(
+        torch, np, mesh, seed, f"{root}/ckpt4")
+    back = restore_service(f"{root}/ckpt1", mesh=mesh, device="cuda")
+    back_fleet = distributed.gather(back.store.factor.data)
+    gL, gV = sharded_grads(torch, mesh, inp["Lf"][:SMALL_STORE[1]],
+                           inp["Vf"][:SMALL_STORE[1]])
+    if rank == 0:
+        torch.save({"fleet": fleet.cpu(), "restored1": back_fleet.cpu(),
+                    "gL": gL.cpu(), "gV": gV.cpu()},
+                   f"{root}/store4.pt")
+    with open(f"{d}/counts{rank}.json", "w") as f:
+        json.dump({"counts": counts, "checks": checks,
+                   "store": {"verdicts": verdicts, "pending": pending,
+                             "mode": mode,
+                             "restored_pending": back.pending("u0")}},
+                  f)
 
 
-def run_four_ranks(torch, inputs, timeout):
-    """Spawn four ranks on the card (``_sharded_rank``), wait for them and
-    stop them. Returns (exit codes, rank 0's gathered results, each rank's
-    launch counts, each rank's kernel checks); all but the codes are None
-    unless all four exited 0."""
-    import multiprocessing
+def run_four_ranks(torch, inputs, timeout, root, seed):
+    """Run ``_sharded_rank`` on four gloo ranks sharing the card
+    (``runtime.compat.run_gloo_ranks``, which raises unless all four exit
+    0). Returns rank 0's gathered results, each rank's launch counts, each
+    rank's kernel checks and each rank's store readings of path 3k
+    (iii)."""
+    from repro_torch.runtime.compat import run_gloo_ranks
 
     d = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         torch.save({name: x.cpu() for name, x in inputs.items()},
                    f"{d}/inputs.pt")
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_sharded_rank, args=(r, d))
-                 for r in range(4)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
-        codes = []
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-            codes.append(p.exitcode)
-        if codes != [0] * 4:
-            return codes, None, None, None
+        run_gloo_ranks(4, _sharded_rank, (d, root, seed), timeout=timeout)
         saved = []
         for r in range(4):
             with open(f"{d}/counts{r}.json") as f:
                 saved.append(json.load(f))
-        return (codes, torch.load(f"{d}/results.pt"),
-                [x["counts"] for x in saved], [x["checks"] for x in saved])
+        return (torch.load(f"{d}/results.pt"),
+                [x["counts"] for x in saved], [x["checks"] for x in saved],
+                [x["store"] for x in saved])
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -445,6 +452,9 @@ STREAM_RUNS = (
 )
 STREAM_WIDTH, STREAM_LADDER, STREAM_PANEL, STREAM_DEADLINE = 16, (64, 128), \
     256, 4
+#: Path 3k (i): the dense runs over a sharded store on the one-rank mesh.
+SHARDED_STREAM_RUNS = tuple((f"sharded {r[0]}",) + r[1:] for r in STREAM_RUNS
+                            if r[1] == "dense")
 
 
 class StreamShadow:
@@ -509,9 +519,11 @@ class StreamShadow:
         factor, its limit, and the factor's distance from the float64
         Cholesky of the member's matrix (relative to its largest entry)."""
         torch, store = self.torch, self.store
+        from repro_torch.core import distributed
+
         idx = torch.as_tensor(slots, device=store.device)
         den = self.maxabs(store.capacity)[idx]
-        data = store.factor.data
+        data = distributed.gather(store.factor.data)
         if store.structure == "blocktridiag":
             from repro_torch.core.structure import BlockTriDiagStorage
 
@@ -552,7 +564,29 @@ def _counts_minus(a, *bs):
     return {k: v - sum(b[k] for b in bs) for k, v in a.items()}
 
 
-def _stream_run(torch, np, dev, seed, run, ckpt_dir):
+def _flush_budget(store, blocks):
+    """The launches a flush of ``blocks`` may take, by kernel: a dense
+    sign block ceil(w/32) ``fused_chain``, a structured one 1
+    ``btd_chain``, a sharded one per 32 columns n / panel ``diag_block``
+    and one ``panel_apply_sharded`` (a shard, any fleet size)."""
+    from repro_torch.kernels import sharded as SH
+
+    want = {}
+    for V in blocks:
+        w = V.shape[-1]
+        if store.sharded:
+            got = SH.kernel_launches(store.n, STREAM_PANEL, strategy="fused",
+                                     k=w)
+        elif store.structure == "blocktridiag":
+            got = {"btd_chain": 1}
+        else:
+            got = {"fused_chain": -(-w // 32)}
+        for k, v in got.items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def _stream_run(torch, np, dev, seed, run, ckpt_dir, mesh=None):
     """One fleet through the stream stack: warmup, then (inside
     ``assert_no_retrace``) admissions, one rank-1 row a user a tick,
     deadline flushes, window downdates, a rung crossing, decay, evictions
@@ -562,23 +596,33 @@ def _stream_run(torch, np, dev, seed, run, ckpt_dir):
     Returns a dict of results; every failed check is recorded by ``check``.
     ``path_launches``: the launches of the served traffic alone (every
     flush of both services), from the end of the warmup to the end of the
-    traffic, less the restore's warmup and the eager comparisons.
+    traffic, less the restore's warmup and the eager comparisons. With
+    ``mesh`` the store is sharded over it (``backend='sharded'``), and the
+    restore rebuilds its mesh from the checkpoint's record.
     """
     from repro_torch.core import CholFactor
     from repro_torch.stream import (FactorStore, StreamService,
                                     assert_no_retrace, checkpoint_service,
                                     mutations_issued, restore_service)
 
+    from repro_torch.core import distributed
+
     (name, structure, prec, n, b, T, window, t_ck, t_promote, t_decay,
      t_evict, t_bad) = run
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    rng = np.random.default_rng([seed, STREAM_RUNS.index(run)])
+    # A sharded run takes its dense twin's traffic.
+    names = [r[0] for r in STREAM_RUNS]
+    base = name.removeprefix("sharded ")
+    rng = np.random.default_rng(
+        [seed, names.index(base) if base in names else len(names)])
     kw = dict(capacity=STREAM_LADDER[0], ladder=STREAM_LADDER,
               width=STREAM_WIDTH, widths=(1, STREAM_WIDTH),
               panel=STREAM_PANEL, precision=prec, device=dev)
     if structure == "blocktridiag":
         kw.update(structure="blocktridiag", block=b)
+    if mesh is not None:
+        kw.update(backend="sharded", mesh=mesh)
     mem = (lambda: torch.cuda.memory_reserved() / 1e9) if cuda else \
         (lambda: 0.0)
     if cuda:
@@ -594,24 +638,23 @@ def _stream_run(torch, np, dev, seed, run, ckpt_dir):
     out["steps"] = rep.compiled
     out["reserved_gb"] = mem()
     out["store_gb"] = mem() - before
+    out["step_mode"] = store.step_mode
 
     eps32 = float(torch.finfo(torch.float32).eps)
     bf16 = prec == "bf16"
     per_mut = n * eps32 + (float(torch.finfo(torch.bfloat16).eps)
                            if bf16 else 0.0)
     shadow = StreamShadow(torch, store, per_mut, bf16)
-    chain = "btd_chain" if structure == "blocktridiag" else "fused_chain"
     leaves = (lambda x: [x.diag, x.off]
-              if structure == "blocktridiag" else [x])
-    stats = {"flushes": 0, "launches": 0, "want": 0, "mutations": 0,
+              if structure == "blocktridiag" else [distributed.gather(x)])
+    stats = {"flushes": 0, "launches": {}, "want": {}, "mutations": 0,
              "budget_ok": True, "eager": [], "kinds": set(),
              "widths": set(), "rejects": 0,
              "aside": {k: 0 for k in _launch_counts()}}
 
     def counted(target):
         """Wrap ``target.apply``: each flush's launches and mutations
-        against its budget (ceil(w/32) fused_chain launches a dense sign
-        block, 1 btd_chain launch a structured one; one mutation a sign
+        against its budget (``_flush_budget``; one mutation a sign
         block); on the live store also the shadow's sums and, for the
         first flush of each kind and the rejected downdate, the eager
         comparison (its launches set aside: not the served path's)."""
@@ -628,21 +671,22 @@ def _stream_run(torch, np, dev, seed, run, ckpt_dir):
             if compare:
                 d = store.factor.data
                 pre = (type(d)(d.diag.clone(), d.off.clone())
-                       if structure == "blocktridiag" else d.clone())
+                       if structure == "blocktridiag"
+                       else distributed.gather(d).clone())
             sync()
             c0, m0 = _launch_counts(), mutations_issued()
             ok = orig_apply(Vup, Vdn)
             sync()
-            got = _counts_minus(_launch_counts(), c0)
+            got = {k: v for k, v in
+                   _counts_minus(_launch_counts(), c0).items() if v}
             muts = mutations_issued() - m0
-            want = sum(1 if structure == "blocktridiag" else
-                       -(-V.shape[-1] // 32) for V in blocks)
+            want = _flush_budget(store, blocks)
             stats["flushes"] += 1
-            stats["launches"] += got[chain]
-            stats["want"] += want
+            for key, into in (("launches", got), ("want", want)):
+                for k, v in into.items():
+                    stats[key][k] = stats[key].get(k, 0) + v
             stats["mutations"] += muts
-            stats["budget_ok"] &= (got[chain] == sum(got.values()) == want
-                                   and muts == len(blocks))
+            stats["budget_ok"] &= got == want and muts == len(blocks)
             if not live:
                 return ok
             stats["kinds"].add(kind)
@@ -771,12 +815,13 @@ def _stream_run(torch, np, dev, seed, run, ckpt_dir):
                                           leaves(survivor.store.factor.data)))
     slots = sorted(store.slot(u) for u in store.users())
     rel, lim, dist = shadow.errors(slots)
+    served = {k: v for k, v in path.items() if v}
     out.update(
         traces=traces, flushes=stats["flushes"], launches=stats["launches"],
         want=stats["want"], path_launches=path,
         mutations=stats["mutations"],
-        budget_ok=(stats["budget_ok"] and path[chain] == sum(path.values())
-                   == stats["launches"] == stats["want"]),
+        budget_ok=(stats["budget_ok"]
+                   and served == stats["launches"] == stats["want"]),
         eager=stats["eager"], widths=sorted(stats["widths"]),
         rejects=stats["rejects"], restored_equal=restored_equal,
         rel_err=float(rel.max()), rel_limit_min=float(lim.min()),
@@ -817,6 +862,8 @@ def stream_timings(torch, np, store, reps=20):
     takes the verdict; device: kernels summed by ``torch.profiler``); the
     host's ``pad_block`` and host-to-device copy of the two blocks; one
     copy of the fleet's size (each step writes its result back)."""
+    from repro_torch.core import distributed
+
     rng = np.random.default_rng(1)
     cap, n, w = store.capacity, store.n, STREAM_WIDTH
     ups = {s: (0.3 * rng.standard_normal((4, n))).astype(np.float32)
@@ -862,6 +909,8 @@ def stream_timings(torch, np, store, reps=20):
                      "stream_p90": float(np.percentile(stream, 90)),
                      "device_ms": _profiled_ms(torch, fn, 5)}
     fleet = store.factor.data
+    if distributed.is_sharded(fleet):
+        fleet = fleet.to_local()  # this rank's part of a sharded fleet
     tmp = fleet.clone()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -876,17 +925,20 @@ def stream_timings(torch, np, store, reps=20):
     return out
 
 
-def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
-    """Path 3i: each run of ``STREAM_RUNS``, its checks, and the timings of
-    the dense fp32 store (``card``: the card's name and power limit, printed
-    beside them). Returns the runs' results and the timings."""
+def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card="",
+                 runs=STREAM_RUNS, mesh=None):
+    """Path 3i (or 3k (i) with ``runs=SHARDED_STREAM_RUNS`` and ``mesh``):
+    each run, its checks, and the timings of the fp32 store's ``both``
+    step (``card``: the card's name and power limit, printed beside them).
+    Returns the runs' results and the timings."""
     from repro_torch.obs import tracing
 
     tracing.RECORDER.clear()
     results, timings = [], None
-    for run in STREAM_RUNS:
+    for run in runs:
         res = _stream_run(torch, np, dev, seed, run,
-                          os.path.join(work_dir, run[0].replace(" ", "_")))
+                          os.path.join(work_dir, run[0].replace(" ", "_")),
+                          mesh=mesh)
         results.append(res)
         eager_ok = len(res["eager"]) >= 4 and all(e[2] for e in res["eager"])
         kinds = {k for k, _ in res["widths"]}
@@ -898,7 +950,8 @@ def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
               f"{res['restore_s']:.2f} s ({res['restore_graphs']} graphs); "
               f"{res['flushes']} flushes ({', '.join(res['reasons'])}), "
               f"widths {res['widths']}, guard rejects {res['rejects']}, "
-              f"capacity {res['capacity']}")
+              f"capacity {res['capacity']}, step_mode "
+              f"{res['step_mode']!r}")
         print(f"  check 1 retraces after warmup {res['traces']} (cold "
               f"dispatches {res['cold']})  "
               f"{'ok' if res['traces'] == 0 else 'FAIL'}")
@@ -916,7 +969,9 @@ def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
         served = {k: v for k, v in res["path_launches"].items() if v}
         print(f"  check 5 flush launches {res['launches']} (budget "
               f"{res['want']}: ceil(w/32) fused_chain a dense sign block, 1 "
-              f"btd_chain a structured one), mutations {res['mutations']} "
+              f"btd_chain a structured one, n/panel diag_block and 1 "
+              f"panel_apply_sharded per 32 columns a sharded one, "
+              f"independent of B), mutations {res['mutations']} "
               f"(one a sign block) over {res['flushes']} flushes of both "
               f"services; served path, warmups and eager comparisons "
               f"excluded: {served}  {'ok' if res['budget_ok'] else 'FAIL'}")
@@ -928,14 +983,14 @@ def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
               "fleet differs from the live one")
         check(res["within"] and res["finite"], f"stream {res['name']}: a "
               "member's modify_error is above its derived limit")
-        check(res["budget_ok"] and res["launches"] > 0,
+        check(res["budget_ok"] and sum(res["launches"].values()) > 0,
               f"stream {res['name']}: launches or mutations off budget")
         check(kinds == {"up", "down", "both"} and ("up", 1) in res["widths"]
               and res["rejects"] >= 1 and res["capacity"] == 128
               and (res["graphs"] > 0 or dev.type != "cuda"),
               f"stream {res['name']}: the sequence missed a step kind, the "
               "width-1 bucket, the rejected downdate or the rung crossing")
-        if dev.type == "cuda" and res["name"] == "dense fp32":
+        if dev.type == "cuda" and res["name"].endswith("dense fp32"):
             timings = stream_timings(torch, np, res["store"])
         for key in ("store", "svc", "survivor"):
             res.pop(key, None)
@@ -944,7 +999,8 @@ def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
             torch.cuda.empty_cache()
     if timings:
         t = timings
-        print(f"stream timing on {card} (dense fp32, rung 128, both 16+16): "
+        print(f"stream timing on {card} ({runs[0][0]}, rung 128, both "
+              f"16+16): "
               f"replay "
               f"event loop p50 {t['replay']['loop_p50']:.3f} / p90 "
               f"{t['replay']['loop_p90']:.3f} ms, stream p50 "
@@ -970,6 +1026,80 @@ def stream_phase(torch, np, dev, seed, work_dir, trace_path=None, card=""):
            "stream.restore"} <= set(names),
           "stream: a span is missing from the trace")
     return results, timings
+
+
+# -- the sharded store's traffic on four ranks (path 3k (iii)) ----------------
+
+#: Path 3k (iii): the store both the one-rank and the four-rank runs serve
+#: (n, users, ticks, window, the tick of the decay, of the eviction and
+#: readmission, of the refused downdate).
+SMALL_STORE = (1024, 8, 12, 6, 5, 7, 9)
+
+
+def small_store_traffic(torch, np, mesh, seed, ckpt_dir):
+    """Path 3k (iii)'s traffic through a sharded store on ``mesh``: 8 users
+    at n = 1024 (ladder (8, 16), widths (1, 16), panel 256), warmed, a row
+    a user a tick, deadline flushes, window downdates, a decay, an
+    eviction and readmission, one refused downdate, a forced flush; then
+    one unflushed row and a checkpoint into ``ckpt_dir``. Every rank of
+    ``mesh`` calls it alike (the same rows from ``seed``). Returns the
+    gathered fleet (at the checkpoint), each flush's downdate verdicts,
+    the unflushed rows of user 0 and the store's ``step_mode``."""
+    from repro_torch.core import distributed
+    from repro_torch.stream import (FactorStore, StreamService,
+                                    checkpoint_service)
+
+    n, B, T, window, t_decay, t_evict, t_bad = SMALL_STORE
+    rng = np.random.default_rng([seed, 31])
+    store = FactorStore(n, capacity=B, ladder=(B, 2 * B),
+                        width=STREAM_WIDTH, widths=(1, STREAM_WIDTH),
+                        panel=STREAM_PANEL, backend="sharded", mesh=mesh)
+    store.warmup()
+    svc = StreamService(store, window=window, deadline=STREAM_DEADLINE)
+    users = [f"u{i}" for i in range(B)]
+    verdicts = []
+
+    def note(r):
+        if r is not None and r.downdate_ok:
+            verdicts.append(sorted(r.downdate_ok.items()))
+
+    def row(scale=0.3):
+        return (scale * rng.standard_normal(n)).astype(np.float32)
+
+    for u in users:
+        svc.admit(u)
+    for t in range(T):
+        if t == t_decay:
+            svc.decay(0.999)
+        if t == t_evict:
+            svc.evict(users[3])
+            svc.admit(users[3])
+        for u in users:
+            note(svc.push(u, row()))
+        if t == t_bad:
+            note(svc.push(users[5], row(30.0), sign=-1))
+        note(svc.tick())
+    note(svc.flush(force=True))
+    fleet = distributed.gather(store.factor.data)
+    svc.push(users[0], row())
+    checkpoint_service(svc, ckpt_dir, step=1)
+    return fleet, verdicts, svc.pending(users[0]), store.step_mode
+
+
+def sharded_grads(torch, mesh, L, V):
+    """Path 3k (iii)'s gradients: 3j's loss through an update and a
+    downdate by half the rows with ``method='sharded'`` on ``mesh``, each
+    rank's loss on its own columns (their sum is the whole loss). Returns
+    the gradients of L and V, whole."""
+    from repro_torch.core import api
+
+    L = L.detach().clone().requires_grad_(True)
+    V = V.detach().clone().requires_grad_(True)
+    kw = dict(method="sharded", mesh=mesh, panel=STREAM_PANEL)
+    up = api.chol_update_batched(L, V, **kw)
+    dn = api.chol_update_batched(up, 0.5 * V, sigma=-1, **kw)
+    gL, gV = torch.autograd.grad(_phi(torch, [dn.to_local()]), [L, V])
+    return gL, gV
 
 
 # -- the train phase (path 3j) ------------------------------------------------
@@ -1171,6 +1301,103 @@ def _dense_grad_cases(torch, L, V, Lf, Vf, gen):
                                   precision_ref=rule64))
         torch.cuda.empty_cache()
     return out
+
+
+def _sharded_grad_cases(torch, mesh, L, V, Lf, Vf, gen):
+    """Path 3k (ii): 3j's loss and checks (a)-(d) through
+    ``method='sharded'`` on the one-rank ``mesh``: the factor (n = 5120 on
+    the card) and the fleet (B = 64, n = 1024) in fp32, the fleet in bf16
+    storage. (b) holds the fp32 rule against the same rule in float64 on
+    the float64 sharded forward (bf16: the update's rule in float64 on
+    what the bf16 run saved), limit sqrt(n) u kappa_2; (c) in float64 on
+    the sharded forward; (d) no launch in a backward (it gathers and runs
+    the dense rule's solves and products)."""
+    from repro_torch.core import api, autodiff, distributed
+
+    def make(fn, precision=None):
+        def fwd(L, V, saved=None):
+            kw = dict(method="sharded", mesh=mesh, panel=256,
+                      precision=precision)
+            up = fn(L, V, **kw)
+            dn = fn(up, 0.5 * V, sigma=-1, **kw)
+            if saved is not None and up.requires_grad:
+                saved["up"] = up
+                up.register_hook(lambda g: saved.__setitem__("g_up", g))
+            return (dn.to_local(),)
+        return fwd
+
+    out = []
+    for name, fn, Lx, Vx in (("factor", api.chol_update, L, V),
+                             ("fleet", api.chol_update_batched, Lf, Vf)):
+        fwd = make(fn)
+        masks = [torch.triu(torch.ones_like(Lx, dtype=torch.float64)),
+                 torch.ones_like(Vx, dtype=torch.float64)]
+        xs64 = [Lx.double(), Vx.double()]
+        outs64, grads64 = _f64_run(torch, fwd, xs64)
+        up64 = distributed.gather(fn(xs64[0], xs64[1], method="sharded",
+                                     mesh=mesh, panel=256))
+        kappa = max(_kappa2(torch, up64), _kappa2(torch, outs64[0]))
+        n = Lx.shape[-1]
+        del up64
+        res = _grad_case(torch, f"sharded {name} fp32", fwd, [Lx, Vx],
+                         masks, f64_ref=(grads64, kappa, n))
+        res["gd"], res["fd"], res["fd_rel"] = _fd_check(
+            torch, fwd, xs64, grads64, masks, gen)
+        res["want"] = _sharded_fwd_want(n, Vx.shape[-1])
+        out.append(res)
+        del outs64, grads64
+        if name == "fleet":
+            def rule64(saved, grads, Lx=Lx):
+                Ln = distributed.gather(saved["up"].detach()).double()
+                G = distributed.gather(saved["g_up"]).double()
+                Abar = autodiff._murray_adjoint(Ln, G)
+                ref = Lx.double() @ (Abar + Abar.mT)
+                return ref, _kappa2(torch, Ln), Lx.shape[-1]
+
+            res = _grad_case(torch, "sharded fleet bf16", make(fn, "bf16"),
+                             [Lx, Vx], masks, f64_ref=None,
+                             precision_ref=rule64)
+            res["want"] = _sharded_fwd_want(n, Vx.shape[-1])
+            out.append(res)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_fwd_want(n, k, calls=2):
+    """The launches of ``calls`` sharded updates of order n and rank k on
+    one rank, panel 256."""
+    from repro_torch.kernels import sharded as SH
+
+    return {name: calls * v for name, v in SH.kernel_launches(
+        n, 256, strategy="fused", k=k).items()}
+
+
+def sharded_grad_phase(torch, dev, seed, mesh, dense, fleet, card):
+    """Path 3k (ii): ``_sharded_grad_cases`` with 3j's checks. Returns the
+    launches of the gradient forwards."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    path = {name: 0 for name in _launch_counts()}
+    for res in _sharded_grad_cases(torch, mesh, *dense, *fleet, gen):
+        _print_grad_case(res, card)
+        for k, v in res["fwd_launches"].items():
+            path[k] += v
+        want = res["want"] if dev.type == "cuda" else {}
+        check(res["equal"] and res["finite"],
+              f"grad {res['name']}: check (a) failed or a gradient is not "
+              "finite")
+        check(res["fwd_launches"] == want and not res["bwd_launches"],
+              f"grad {res['name']}: check (d) failed: forward "
+              f"{res['fwd_launches']} (want {want}), backward "
+              f"{res['bwd_launches']} (want none)")
+        check(res["dtypes"][-1] == "float32",
+              f"grad {res['name']}: V's gradient is not fp32")
+        if res.get("b_lim"):
+            check(res["b_err"] <= res["b_lim"],
+                  f"grad {res['name']}: check (b) above its limit")
+        if "fd_rel" in res:
+            check(res["fd_rel"] <= 1e-6,
+                  f"grad {res['name']}: check (c) above 1e-6")
+    return path
 
 
 def _structured_grad_case(torch, S, V, gen):
@@ -2169,22 +2396,27 @@ def main(argv=None) -> int:
         one[strat] = distributed.gather(chol_update_batched(
             Ls0[None], Vs[None], method="sharded", mesh=mesh1, panel=P,
             strategy=strat))[0]
+    # Path 3k (iii)'s one-rank side, before the four ranks start (they
+    # restore its checkpoint): the store traffic on the one-rank mesh.
+    k3_root = tempfile.mkdtemp(prefix="chip_smoke_3k_")
+    fleet1, verdicts1, pending1, mode1 = small_store_traffic(
+        torch, np, mesh1, args.seed, os.path.join(k3_root, "ckpt1"))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    codes, res4, counts4, checks4 = run_four_ranks(
-        torch, {"L": Ls0, "V": Vs, "Lf": Lf, "Vf": Vf}, timeout=400)
-    print(f"path sharded, four ranks on the card: exit codes {codes}, "
+    res4, counts4, checks4, store4 = run_four_ranks(
+        torch, {"L": Ls0, "V": Vs, "Lf": Lf, "Vf": Vf}, timeout=400,
+        root=k3_root, seed=args.seed)
+    print(f"path sharded, four ranks on the card: all four exited 0, "
           f"{time.perf_counter() - t0:.1f} s")
-    check(codes == [0] * 4, "a rank of the four-rank run failed")
-    for rank, rank_checks in enumerate(checks4 or ()):
+    for rank, rank_checks in enumerate(checks4):
         for what, err, lim, ok in rank_checks:
             print(f"  rank {rank}: {what} vs plain {err:.3f} u (limit "
                   f"{lim:g})  {'ok' if ok else 'FAIL'}")
             check(ok, f"rank {rank}: {what} disagrees with its plain version")
-    check(checks4 is None or all(len(c) == 9 for c in checks4),
+    check(all(len(c) == 9 for c in checks4),
           "a rank did not check all its kernels")
-    for name, strat, is_fleet, prec in SHARDED_CASES if res4 else ():
+    for name, strat, is_fleet, prec in SHARDED_CASES:
         n_ = fb if is_fleet else ns
         dt = torch.bfloat16 if prec else torch.float32
         err = entry_err(torch, res4[name].to(dev), one[name],
@@ -2199,6 +2431,56 @@ def main(argv=None) -> int:
               f"four ranks disagree with one rank ({name})")
     del res4
 
+    # Path 3k (iii): the sharded store's traffic on four ranks against
+    # one, each rank count's checkpoint restored on the other, and
+    # four-rank gradients against one-rank gradients (correctness only).
+    from repro_torch.stream import restore_service
+
+    r4 = torch.load(os.path.join(k3_root, "store4.pt"))
+    n3k = SMALL_STORE[0]
+    e_st = entry_err(torch, r4["fleet"].to(dev), fleet1, u32)
+    lim_st = entry_limit(torch, torch.float32, n3k)
+    same_v = all(json.loads(json.dumps(verdicts1)) == x["verdicts"]
+                 for x in store4)
+    rejected = any(not ok for v in verdicts1 for _, ok in v)
+    back1 = restore_service(os.path.join(k3_root, "ckpt4"), mesh=mesh1,
+                            device=dev)
+    from_four = torch.equal(
+        distributed.gather(back1.store.factor.data),
+        r4["fleet"].to(dev)) and back1.pending("u0") == 1
+    from_one = torch.equal(r4["restored1"].to(dev), fleet1) and all(
+        x["restored_pending"] == pending1 == 1 for x in store4)
+    modes = [x["mode"] for x in store4]
+    gL1, gV1 = sharded_grads(torch, mesh1, Lf[:SMALL_STORE[1]],
+                             Vf[:SMALL_STORE[1]])
+    up1 = distributed.gather(chol_update_batched(
+        Lf[:SMALL_STORE[1]].double(), Vf[:SMALL_STORE[1]].double(),
+        method="sharded", mesh=mesh1, panel=P))
+    kap = _kappa2(torch, up1)
+    g_lim = math.sqrt(n3k) * 2.0 ** -24 * kap
+    g_err = max(float((a.to(dev).double() - b.double()).abs().max()
+                      / b.double().abs().max())
+                for a, b in ((r4["gL"], gL1), (r4["gV"], gV1)))
+    print(f"path 3k (iii) sharded store, four ranks (step_mode "
+          f"{modes}) against one (step_mode {mode1!r}), n={n3k} "
+          f"B={SMALL_STORE[1]}: fleet {e_st:.3f} u (limit {lim_st:g}); "
+          f"verdicts equal {same_v} (a refused downdate: {rejected}); "
+          f"four-rank checkpoint restored on one rank bit for bit "
+          f"{from_four}, one-rank checkpoint restored on four "
+          f"{from_one}; gradients four against one relative {g_err:.3e} "
+          f"(limit sqrt(n) u kappa_2 = {g_lim:.3e}, kappa_2 {kap:.1f})")
+    check(e_st <= lim_st and same_v and rejected,
+          "3k (iii): the four-rank store disagrees with one rank")
+    check(from_four and from_one,
+          "3k (iii): a checkpoint did not restore across rank counts")
+    check(mode1 == "graphs" and modes == ["eager"] * 4,
+          "3k (iii): step_mode is not graphs on one rank and eager on "
+          "four gloo ranks")
+    check(g_err <= g_lim, "3k (iii): four-rank gradients disagree with "
+          "one rank's")
+    del r4, back1, gL1, gV1, up1
+    shutil.rmtree(k3_root, ignore_errors=True)
+
     # 3i. the stream stack: StreamService -> FactorStore -> CUDA graphs of
     # the fused chain (dense fleets, fp32 and bf16) and the block chain (a
     # structured fleet), with its five checks and the timings of the dense
@@ -2210,8 +2492,8 @@ def main(argv=None) -> int:
     trace_path = os.path.join(HERE, "chiprun_out", "stream_trace.json")
     os.makedirs(os.path.dirname(trace_path), exist_ok=True)
     try:
-        runs, _ = stream_phase(torch, np, dev, args.seed, stream_dir,
-                               trace_path, card)
+        runs, dense_timing = stream_phase(torch, np, dev, args.seed,
+                                          stream_dir, trace_path, card)
     finally:
         shutil.rmtree(stream_dir, ignore_errors=True)
     torch.cuda.synchronize()
@@ -2220,13 +2502,14 @@ def main(argv=None) -> int:
     got = {name: sum(r["path_launches"][name] for r in runs)
            for name in counters}
     add_path(got)
-    want = {"fused_chain": sum(r["want"] for r in runs
-                               if r["name"].startswith("dense")),
-            "btd_chain": sum(r["want"] for r in runs
-                             if r["name"].startswith("structured"))}
+    want = {}
+    for r in runs:
+        for kern, cnt in r["want"].items():
+            want[kern] = want.get(kern, 0) + cnt
     print(f"path stream: served launches {got} (flush budget {want}), "
           f"{time.perf_counter() - t0:.1f} s")
-    check(all(got[k] == v > 0 for k, v in want.items())
+    check(set(want) == {"fused_chain", "btd_chain"}
+          and all(got[k] == v > 0 for k, v in want.items())
           and sum(got.values()) == sum(want.values()),
           "the stream path's launches are off the flushes' budget")
     torch.cuda.empty_cache()
@@ -2240,6 +2523,61 @@ def main(argv=None) -> int:
                       (Sw, Vw), card)
     add_path(got)
     print(f"path train: launches {got}")
+    torch.cuda.empty_cache()
+
+    # 3k. the stream store's sharded placement on the one-rank mesh of 3g:
+    # (i) StreamService over FactorStore(backend='sharded', mesh=mesh1) at
+    # 3i's dense shapes and traffic (fp32, bf16), its steps CUDA graphs of
+    # the sharded driver's diag_block and panel_apply_sharded kernels, with
+    # 3i's five checks and the sharded both step timed beside 3i's dense
+    # one; (ii) gradients through method='sharded' on 3g's n = 5120 factor
+    # and the B = 64 fleet. (iii) ran in 3h's four-rank spawn.
+    t3k = time.perf_counter()
+    reset_counts()
+    sdir = tempfile.mkdtemp(prefix="chip_smoke_sharded_stream_")
+    try:
+        sruns, stiming = stream_phase(torch, np, dev, args.seed, sdir, None,
+                                      card, runs=SHARDED_STREAM_RUNS,
+                                      mesh=mesh1)
+    finally:
+        shutil.rmtree(sdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    got = {name: sum(r["path_launches"][name] for r in sruns)
+           for name in counters}
+    add_path(got)
+    want = {}
+    for r in sruns:
+        for kern, cnt in r["want"].items():
+            want[kern] = want.get(kern, 0) + cnt
+    served = {k: v for k, v in got.items() if v}
+    print(f"path 3k (i) sharded stream: served launches {served} (flush "
+          f"budget {want}), step_mode {[r['step_mode'] for r in sruns]}, "
+          f"{time.perf_counter() - t3k:.1f} s")
+    check(served == want and set(want) == {"diag_block",
+                                           "panel_apply_sharded"},
+          "3k (i): the sharded stream's launches are off the flushes' "
+          "budget")
+    check(all(r["step_mode"] == "graphs" for r in sruns),
+          "3k (i): the one-rank sharded store's steps are not graphs")
+    if stiming and dense_timing:
+        for what, t in (("sharded", stiming), ("dense (3i)", dense_timing)):
+            print(f"path 3k both step 16+16 at rung 128, {what}, on {card}: "
+                  f"replay p50 {t['replay']['loop_p50']:.3f} / p90 "
+                  f"{t['replay']['loop_p90']:.3f} ms, device "
+                  f"{t['replay']['device_ms']} ms; eager p50 "
+                  f"{t['eager']['loop_p50']:.3f} / p90 "
+                  f"{t['eager']['loop_p90']:.3f} ms, device "
+                  f"{t['eager']['device_ms']} ms")
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = sharded_grad_phase(torch, dev, args.seed, mesh1, (Ls0, Vs),
+                             (Lf, Vf), card)
+    add_path(got)
+    print(f"path 3k (ii) sharded gradients: launches "
+          f"{ {k: v for k, v in got.items() if v} }, "
+          f"{time.perf_counter() - t0:.1f} s; path 3k (i)+(ii) "
+          f"{time.perf_counter() - t3k:.1f} s")
     torch.cuda.empty_cache()
 
     # -- kernel vs plain at the main paths' shapes (not counted) --------------

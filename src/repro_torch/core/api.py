@@ -25,10 +25,10 @@ Gradients: when an input requires a gradient (or carries a forward-AD
 tangent), the call goes through the Murray rules of
 ``repro_torch.core.autodiff`` (a ``torch.autograd.Function`` around the
 dispatched backend, which runs with no tape); otherwise it dispatches
-directly, with no ``Function`` in the way. ``method='sharded'`` with a
-gradient raises: its result is a ``DTensor``, and the rule over shards
-belongs with the stream store's sharded placement (ROADMAP queue 1 item
-6b).
+directly, with no ``Function`` in the way. ``method='sharded'`` takes the
+dense rule on the whole factor on every rank (``diffable_update_sharded``:
+its result is a ``DTensor``, the gradient of ``L`` comes back in ``L``'s
+layout; under forward mode the result is gathered whole on every rank).
 """
 from __future__ import annotations
 
@@ -64,29 +64,33 @@ def as_tensor(x, device=None):
     return torch.as_tensor(x, device=default_device(device))
 
 
-def _needs_rule(L, V) -> bool:
-    """True when ``L`` or ``V`` requires a gradient, or a forward-AD level
-    (``torch.autograd.forward_ad``, ``torch.func.jvp``) is active: the call
-    then goes through the Murray rule. Attribute reads only, so a call
-    with no gradient dispatches as it always did."""
-    if torch.is_grad_enabled() and (L.requires_grad or V.requires_grad):
-        return True
+def _forward_mode() -> bool:
+    """True when a forward-AD level (``torch.autograd.forward_ad``,
+    ``torch.func.jvp``) is active."""
     return (getattr(_fwad, "_current_level", -1) >= 0
             or torch._C._functorch.maybe_current_level() is not None)
+
+
+def _needs_rule(L, V) -> bool:
+    """True when ``L`` or ``V`` requires a gradient, or a forward-AD level
+    is active: the call then goes through the Murray rule. Attribute reads
+    only, so a call with no gradient dispatches as it always did."""
+    if torch.is_grad_enabled() and (L.requires_grad or V.requires_grad):
+        return True
+    return _forward_mode()
 
 
 def _run(L, V, *, sigma, method, **kw):
     """Dispatch, through the Murray rule when ``_needs_rule``."""
     if not _needs_rule(L, V):
         return backends.dispatch(L, V, sigma=sigma, method=method, **kw)
-    if method == "sharded":
-        raise NotImplementedError(
-            "gradients through method='sharded' come with the stream "
-            "store's sharded placement (ROADMAP queue 1 item 6b)")
 
     def impl(L, V, sigma):
         return backends.dispatch(L, V, sigma=sigma, method=method, **kw)
 
+    if method == "sharded":
+        return autodiff.diffable_update_sharded(
+            impl, sigma, L, V, forward_mode=_forward_mode())
     if _structure.is_factor_storage(L):
         return autodiff.diffable_update_structured(impl, sigma, L, V)
     return autodiff.diffable_update(impl, sigma, L, V)

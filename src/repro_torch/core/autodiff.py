@@ -30,11 +30,24 @@ the same rule. The forward runs the backend with no tape.
 The structured rule (``diffable_update_structured``) is the same rule
 applied block by block along the block-tridiagonal chain: O(nb·b³) work,
 nothing ``(n, n)`` built in the forward or the backward.
+
+The sharded rule (``diffable_update_sharded``) is the dense rule around
+the column-sharded driver (``method='sharded'``), whose result is a
+``DTensor``. Its backward makes ``L~`` and the cotangent whole on every
+rank (``distributed.gather``, the same collectives on every rank), runs
+the dense rule's solves and products there, and hands each input its
+gradient in the input's own layout: ``Lbar`` sharded like ``L`` (each rank
+keeps its own columns, no communication), ``Vbar`` whole like ``V``. A
+replicated gradient is never reduced again (that would multiply it by the
+number of ranks). ``jvp`` does the same for forward mode, where the result
+is gathered whole on every rank: torch's forward-mode AD cannot attach a
+tangent to a ``DTensor``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import distributed as _distributed
 from repro_torch.core.structure import BlockTriDiagStorage
 
 
@@ -81,16 +94,35 @@ def _murray_adjoint(U, G):
     return _solve_upper(U, X, trans=True, left=False)
 
 
+def _whole(x):
+    """``x`` whole on every rank (a ``DTensor`` is gathered, a collective
+    every rank makes; a ``Partial`` one is reduced first); anything else
+    as it is."""
+    if not _distributed.is_sharded(x):
+        return x
+    if any(p.is_partial() for p in x.placements):
+        from torch.distributed.tensor import Replicate
+
+        x = x.redistribute(x.device_mesh,
+                           [Replicate() if p.is_partial() else p
+                            for p in x.placements])
+    return _distributed.gather(x)
+
+
 class _DenseRule(torch.autograd.Function):
-    """``impl(L, V, sigma)`` under the Murray rule (dense, any fleet)."""
+    """``impl(L, V, sigma)`` under the Murray rule (dense, any fleet, or
+    sharded over a mesh: then on the whole factor on every rank). With
+    ``whole`` the result is gathered whole (forward mode through the
+    sharded driver: a ``DTensor`` cannot carry a forward-mode tangent)."""
 
     @staticmethod
-    def forward(impl, sigma, L, V):
-        return _own(impl(L, V, sigma))
+    def forward(impl, sigma, whole, L, V):
+        out = impl(L, V, sigma)
+        return _own(_whole(out) if whole else out)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, sigma, L, V = inputs
+        _, sigma, _, L, V = inputs
         ctx.sigma = sigma
         ctx.save_for_backward(L, V, output)
         ctx.save_for_forward(L, V, output)
@@ -99,25 +131,39 @@ class _DenseRule(torch.autograd.Function):
     def backward(ctx, G):
         L, V, Ln = ctx.saved_tensors
         acc = _acc(Ln.dtype)
-        Abar = _murray_adjoint(Ln.to(acc), G.to(acc))
+        Abar = _murray_adjoint(_whole(Ln).to(acc), _whole(G).to(acc))
         S = Abar + Abar.mT
         gL = gV = None
-        if ctx.needs_input_grad[2]:
-            gL = (L.to(acc) @ S).to(L.dtype)
         if ctx.needs_input_grad[3]:
-            gV = (ctx.sigma * (S @ V.to(acc))).to(V.dtype)
-        return None, None, gL, gV
+            gL = _distributed.place_like(
+                (_whole(L).to(acc) @ S).to(L.dtype), L)
+        if ctx.needs_input_grad[4]:
+            gV = _distributed.place_like(
+                (ctx.sigma * (S @ _whole(V).to(acc))).to(V.dtype), V)
+        return None, None, None, gL, gV
 
     @staticmethod
-    def jvp(ctx, _impl_t, _sigma_t, dL, dV):
+    def jvp(ctx, _impl_t, _sigma_t, _whole_t, dL, dV):
         L, V, Ln = ctx.saved_tensors
         acc = _acc(Ln.dtype)
-        Lh, Vh = L.to(acc), V.to(acc)
-        dLh = _or_zeros(dL, L).to(acc)
-        dVh = _or_zeros(dV, V).to(acc)
+        Lh, Vh = _whole(L).to(acc), _whole(V).to(acc)
+        dLh = _whole(_or_zeros(dL, L)).to(acc)
+        dVh = _whole(_or_zeros(dV, V)).to(acc)
         dA = (dLh.mT @ Lh + Lh.mT @ dLh
               + ctx.sigma * (dVh @ Vh.mT + Vh @ dVh.mT))
-        return _murray_tangent(Ln.to(acc), dA).to(Ln.dtype)
+        return _distributed.place_like(
+            _murray_tangent(_whole(Ln).to(acc), dA).to(Ln.dtype), Ln)
+
+
+def diffable_update_sharded(impl, sigma, L, V, *, forward_mode=False):
+    """``impl(L, V, sigma) -> L_new`` (a ``DTensor``) under the dense
+    Murray rule, for a factor or a ``(B, n, n)`` fleet sharded over a mesh
+    (``L`` a ``DTensor`` or the whole tensor on every rank). Every rank of
+    the mesh calls it, and its backward, with the same arguments. With
+    ``forward_mode`` (a forward-AD level is active) the inputs must be
+    whole tensors and the result comes back whole on every rank, carrying
+    its tangent."""
+    return _DenseRule.apply(impl, sigma, forward_mode, L, V)
 
 
 def diffable_update(impl, sigma, L, V):
@@ -127,7 +173,7 @@ def diffable_update(impl, sigma, L, V):
     with no tape; ``V`` must already be ``(..., n, k)``. Stacked
     ``(B, n, n)`` / ``(B, n, k)`` operands go through the same rule.
     """
-    return _DenseRule.apply(impl, sigma, L, V)
+    return _DenseRule.apply(impl, sigma, False, L, V)
 
 
 # ---------------------------------------------------------------------------

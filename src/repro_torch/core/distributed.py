@@ -192,6 +192,29 @@ def gather(x):
     return out
 
 
+def place_like(whole, like):
+    """``whole`` (the same on every rank) laid out as the ``DTensor``
+    ``like``: its mesh and placements, each rank keeping its own part of
+    every sharded dim (the mesh's dims taken in order, as a ``DTensor``
+    splits them), with no communication. Anything but a ``DTensor``
+    ``like`` passes ``whole`` as it is."""
+    if not is_sharded(like):
+        return whole
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = like.device_mesh
+    loc = whole
+    for d, pl in enumerate(like.placements):
+        if isinstance(pl, Shard):
+            loc = loc.chunk(mesh.size(d), dim=pl.dim)[mesh.get_local_rank(d)]
+        elif not pl.is_replicate():
+            raise ValueError(f"place_like takes sharded or replicated dims, "
+                             f"got placements {like.placements}")
+    return DTensor.from_local(loc.contiguous(), mesh, list(like.placements),
+                              run_check=False, shape=whole.shape,
+                              stride=whole.stride())
+
+
 def shard(L, mesh, axis: AxisNames = "model"):
     """``L`` column-sharded over ``axis`` of ``mesh``, as a ``DTensor``.
 

@@ -40,3 +40,34 @@ from repro_torch.obs.tracing import (  # noqa: F401
 )
 
 atexit.register(_export_at_exit)
+
+
+def summary_line() -> str:
+    """One-line serving-metrics summary (the examples' exit line, in the
+    JAX package's format), read back from the port's registry."""
+    merged = None
+    for key, h in snapshot()["histograms"].items():
+        if key.startswith("repro.stream.flush_seconds"):
+            if merged is None:
+                merged = {"count": 0, "sum": 0.0, "edges": h["edges"],
+                          "counts": [0] * len(h["counts"])}
+            merged["count"] += h["count"]
+            merged["sum"] += h["sum"]
+            merged["counts"] = [a + b for a, b in
+                                zip(merged["counts"], h["counts"])]
+    flush = None
+    if merged and merged["count"]:
+        p50 = percentile_from(merged, 50) * 1e6
+        p99 = percentile_from(merged, 99) * 1e6
+        flush = f"flushes={merged['count']} p50<={p50:.0f}us p99<={p99:.0f}us"
+    bits = [
+        f"mutations={int(total('repro.stream.mutations'))}",
+        flush or "flushes=0",
+        f"retraces={int(total('repro.stream.retraces'))}",
+        f"admissions={int(total('repro.stream.admissions'))}",
+        f"evictions={int(total('repro.stream.evictions'))}",
+        f"wal_bytes={int(total('repro.stream.wal_bytes'))}",
+        f"occupancy={value('repro.stream.ladder_occupancy'):.2f}",
+        f"spans={len(RECORDER)}",
+    ]
+    return "obs: " + " ".join(bits)

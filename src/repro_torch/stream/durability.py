@@ -18,8 +18,16 @@ replay log, restored here, give the port's fleet, and back.
 ``restore_service`` = load the newest committed checkpoint, rebuild the
 store/service around its meta, then replay the WAL: buffered rows are
 re-buffered and logged ``flush`` events re-issue the identical mutation
-sequence. The sharded placement's mesh record (a checkpoint of a sharded
-fleet) is not ported yet (ROADMAP queue 1 item 6b): restoring one raises.
+sequence.
+
+A sharded fleet (``FactorStore(backend='sharded', mesh=)``) is checkpointed
+whole, with its mesh record in the JAX package's JSON (axis names, sizes,
+the column axis): ``checkpoint_service`` gathers the fleet (a collective:
+every rank calls it), the rank at the mesh's origin writes the checkpoint
+and the replay log, and the others wait at a barrier and log nothing.
+``restore_service`` rebuilds the mesh from the record
+(``runtime.compat.make_mesh_compat``) or takes ``mesh=``, each rank keeps
+its columns, and every rank replays the log.
 """
 from __future__ import annotations
 
@@ -33,13 +41,14 @@ import numpy as np
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import CholFactor
+from repro_torch.core import distributed as _distributed
 from repro_torch.core.precision import Precision
 from repro_torch.core.structure import BlockTriDiagStorage
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.stream.coalescer import Coalescer
 from repro_torch.stream.service import StreamService
-from repro_torch.stream.store import FactorStore, _sharded_error
+from repro_torch.stream.store import FactorStore
 
 # Rows are float32/float64 host arrays: numpy parses their dtype names.
 _np_dtype = ckpt.np_dtype_for
@@ -72,6 +81,73 @@ def _precision_from_json(d) -> Optional[Precision]:
     if d is None:
         return None
     return Precision(storage=d["storage"], accum=d["accum"])
+
+
+# -- mesh codec (sharded fleets) ---------------------------------------------
+#
+# A DeviceMesh holds live process groups, so the checkpoint records what
+# determines it (dim names and sizes, the column axis) in the JAX package's
+# JSON, and restore rebuilds an equivalent mesh over the restoring
+# process group. A restore onto another rank count fails loudly in
+# make_mesh_compat unless mesh= gives the new layout.
+
+
+def _mesh_to_json(factor) -> Optional[dict]:
+    if factor.backend != "sharded" or factor.mesh is None:
+        return None
+    mesh = factor.mesh
+    axis = factor.axis
+    names = tuple(mesh.mesh_dim_names)
+    return {
+        "axes": [str(a) for a in names],
+        "shape": [int(mesh.size(i)) for i in range(len(names))],
+        "axis": axis if isinstance(axis, str) else list(axis),
+    }
+
+
+def _mesh_from_json(d, *, mesh=None, device=None):
+    """(mesh, axis) from checkpoint meta; ``mesh=`` overrides (a restore
+    onto another layout). ``device``: the ranks' device type when the
+    mesh is rebuilt (default CUDA)."""
+    if d is None:
+        if mesh is not None:
+            # Dropping the override silently would hand back a whole store
+            # the caller believes is sharded.
+            raise ValueError(
+                "mesh= override given, but the checkpoint carries no "
+                "sharded-fleet record (unsharded fleet, or saved before "
+                "the sharded placement)")
+        return None, "model"
+    axis = d["axis"] if isinstance(d["axis"], str) else tuple(d["axis"])
+    if mesh is None:
+        from repro_torch.core.api import default_device
+        from repro_torch.runtime.compat import make_mesh_compat
+
+        mesh = make_mesh_compat(tuple(d["shape"]), tuple(d["axes"]),
+                                device_type=default_device(device).type)
+    return mesh, axis
+
+
+def _writes(store) -> bool:
+    """True on the rank that writes a store's checkpoint and replay log:
+    every rank of an unsharded store, the mesh's origin of a sharded one."""
+    if not store.sharded:
+        return True
+    coord = store._mesh.get_coordinate()
+    return coord is not None and not any(coord)
+
+
+def _mesh_barrier(store) -> None:
+    """Every rank of a sharded store's mesh waits for the others (one
+    barrier per mesh dim of more than one rank, in order)."""
+    if not store.sharded:
+        return
+    import torch.distributed as dist
+
+    mesh = store._mesh
+    for d in range(mesh.ndim):
+        if mesh.size(d) > 1:
+            dist.barrier(group=mesh.get_group(d))
 
 
 # -- the write-ahead log -----------------------------------------------------
@@ -164,6 +240,12 @@ def _checkpoint_locked(svc: StreamService, ckpt_dir, step: int, *,
                        keep: int) -> Path:
     store = svc.store
     f = store.factor
+    # A sharded fleet is written whole: the gather is a collective every
+    # rank makes; one rank writes, the others wait for its commit.
+    fleet = _distributed.gather(f.data)
+    if not _writes(store):
+        _mesh_barrier(store)
+        return Path(ckpt_dir) / f"step_{step:08d}"
 
     # Seed the NEW WAL segment FIRST — the unflushed ring contents and the
     # pending window schedule, everything the checkpoint's arrays do not
@@ -204,7 +286,7 @@ def _checkpoint_locked(svc: StreamService, ckpt_dir, step: int, *,
         "backend": f.backend,
         "interpret": f.interpret,
         "precision": _precision_to_json(f.precision),
-        "mesh": None,
+        "mesh": _mesh_to_json(f),
         "dtype": ckpt.dtype_name(f.dtype),
         "init_scale": store.init_scale,
         "slots": [[u, s] for u, s in sorted(
@@ -219,7 +301,7 @@ def _checkpoint_locked(svc: StreamService, ckpt_dir, step: int, *,
         "background": svc.background_active,
         "wal": wal_path.name,
     }}
-    path = ckpt.save(ckpt_dir, step, {"fleet": f.data}, keep=keep,
+    path = ckpt.save(ckpt_dir, step, {"fleet": fleet}, keep=keep,
                      extra=extra)
 
     # Rotate: the previous segment is superseded, live traffic appends to
@@ -228,6 +310,7 @@ def _checkpoint_locked(svc: StreamService, ckpt_dir, step: int, *,
         svc._wal.close()
     svc.attach_wal(log)
     _prune_wals(ckpt_dir)
+    _mesh_barrier(store)
     return path
 
 
@@ -281,16 +364,18 @@ def restore_service(ckpt_dir, *, step: Optional[int] = None,
                     device=None) -> StreamService:
     """Rebuild a ``StreamService`` from checkpoint + WAL replay.
 
-    ``mesh``: the sharded placement is not ported yet (ROADMAP queue 1 item
-    6b): a ``mesh=`` override, or a checkpoint of a sharded fleet, raises
-    ``NotImplementedError``.
+    ``mesh``: for a checkpoint of a sharded fleet, a ``DeviceMesh`` to
+    restore onto instead of the one its record rebuilds (another rank
+    count or layout); every rank of it calls ``restore_service``. A
+    ``mesh=`` for a checkpoint of an unsharded fleet is a ``ValueError``.
 
     ``warm``: run ``store.warmup()`` BEFORE the WAL replay, so the replayed
     mutation sequence — and everything the restored service serves
     afterwards — replays steps built ahead of time. The restored fleet is a
     new allocation, so its steps are built (captured) here and counted.
 
-    ``device``: where the fleet goes (default CUDA).
+    ``device``: where the fleet goes (default CUDA); a rebuilt mesh's ranks
+    compute there.
     """
     with obs_tracing.span("stream.restore", warm=warm):
         return _restore_service(ckpt_dir, step=step, mesh=mesh, warm=warm,
@@ -310,8 +395,7 @@ def _restore_service(ckpt_dir, *, step, mesh, warm, device
             f"checkpoint step {step} carries no stream meta — was it saved "
             "by checkpoint_service?")
 
-    if mesh is not None or s.get("mesh") is not None:
-        raise _sharded_error()
+    mesh, axis = _mesh_from_json(s.get("mesh"), mesh=mesh, device=device)
     # The fleet template mirrors the recorded storage kind. Checkpoints
     # from before the record restore as dense; a structured checkpoint read
     # with a dense template fails inside ckpt.restore (the block-stack leaf
@@ -328,12 +412,14 @@ def _restore_service(ckpt_dir, *, step, mesh, warm, device
             "(supported: 'dense', 'blocktridiag')")
     from repro_torch.core.api import default_device
 
-    data = ckpt.restore(ckpt_dir, step, template,
-                        device=default_device(device))["fleet"]
+    where = (_distributed.mesh_device(mesh) if mesh is not None
+             else default_device(device))
+    data = ckpt.restore(ckpt_dir, step, template, device=where)["fleet"]
     factor = CholFactor.from_factor(
         data, panel=s["panel"], backend=s["backend"],
         interpret=s["interpret"],
-        precision=_precision_from_json(s["precision"]))
+        precision=_precision_from_json(s["precision"]),
+        mesh=mesh, axis=axis)
     store = FactorStore.from_state(
         factor, width=s["width"],
         slots={_user_key(u): slot for u, slot in s["slots"]},
@@ -369,7 +455,10 @@ def _restore_service(ckpt_dir, *, step, mesh, warm, device
             _apply_record(svc, rec)
     finally:
         svc._replaying = False
-    svc.attach_wal(ReplayLog(wal_path))  # append-continue the same segment
+    # Every rank has read the log before its writer appends to it again.
+    _mesh_barrier(store)
+    if _writes(store):
+        svc.attach_wal(ReplayLog(wal_path))  # append-continue the segment
     if s.get("background"):
         # Replay is strictly synchronous (the log's flush grouping is
         # authoritative); only the LIVE service gets its worker back.

@@ -27,6 +27,13 @@ is captured there (and counted by the retrace guard).
 Every state-changing call appends one record to the attached write-ahead
 ``ReplayLog`` (``repro_torch.stream.durability``), in the JAX package's
 record format.
+
+**Many controllers.** Over a sharded store of several ranks every rank
+runs the same ``StreamService`` on the same calls: coalescing is
+deterministic, so every rank issues the same steps and so the same
+collectives. The background worker's flush points follow wall time,
+which would let the ranks' collectives diverge and deadlock, so
+``start_background()`` refuses a store of more than one rank.
 """
 from __future__ import annotations
 
@@ -197,6 +204,12 @@ class StreamService:
         off-thread; explicit ``flush()`` calls remain synchronous."""
         if self.background_active:
             return
+        if self.store.ranks > 1:
+            raise RuntimeError(
+                f"start_background() on a sharded store of "
+                f"{self.store.ranks} ranks: the worker's flush points "
+                "follow wall time, so the ranks' collectives could diverge "
+                "and deadlock; flush from the calls every rank makes")
         self._worker = _FlushWorker(self, self._queue_size)
         self._worker.start()
 

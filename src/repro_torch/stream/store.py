@@ -22,8 +22,9 @@ the current rung and are reallocated at a promotion.
 * on CUDA a step is a CUDA graph, captured once per (step, rung, width[s],
   dtype) from the eager step (``CholFactor.update`` / the guarded
   downdate's calls -> ``api.chol_update_batched`` -> the ``fused_chain``
-  kernel for a dense fleet, the ``btd_chain`` kernel for a structured one)
-  and replayed per call. The replays read static inputs the store owns:
+  kernel for a dense fleet, the ``btd_chain`` kernel for a structured one,
+  the sharded driver's ``diag_block`` and ``panel_apply_sharded`` kernels
+  for a sharded one) and replayed per call. The replays read static inputs the store owns:
   the V block(s), staged from ``pad_block``'s host array; the slot index
   and the member block (``slot_set``); alpha (``scale``). All of a store's
   graphs share one memory pool; no graph leaves a live output in it.
@@ -67,8 +68,31 @@ capturing thread's counts (``LAUNCHES``, ``repro.kernels.launches`` and the
 registry's other counters; ``obs.metrics.deferring``), since nothing ran,
 and each replay of the graph applies them.
 
-Sharded placement (``mesh=``, ``backend='sharded'``) is not ported yet
-(ROADMAP queue 1 item 6b) and raises ``NotImplementedError``.
+**Sharded placement** (``backend='sharded'``, ``mesh=``, ``axis=``): every
+member is column-sharded over ``axis`` of the mesh, the batch replicated
+(``fleet_placement``, JAX's ``P(None, None, axis)``). Each rank holds one
+preallocated local tensor ``(top, n, w_loc)`` (its columns of every
+member), and the fleet value is a ``DTensor`` over its leading members;
+admission, eviction, promotion, compaction, decay and every step keep that
+placement, and every flush dispatches through the column-sharded driver:
+per sign block, n / panel ``diag_block`` launches and one
+``panel_apply_sharded`` launch per 32 columns of the block on each shard,
+whatever the fleet size. Every rank runs the same calls (many
+controllers, one program). The guarded downdate takes its verdict from
+the downdated factor's diagonal (``distributed.diag_verdict``: device ops
+and a MIN all_reduce, no ``eigvalsh``), so it is one part, not two.
+
+**Which steps are graphs** (``step_mode``, a rule, not a knob): a step is
+a CUDA graph (captured per rank) only where every collective in it can be
+captured: on CUDA with no mesh, or with a mesh whose axis dims each hold
+one rank (those take no collective) or run over NCCL. Under ``gloo`` with
+more than one rank along the axis the driver stages its blocks through
+host memory (``distributed._staged``), which cannot be captured, so every
+step runs eager on every call; on the CPU every step runs eager too.
+Capture on an axis of several NCCL ranks (several cards) has never been
+run: only the one-rank axis has been captured and replayed on a card. A
+capture that fails there raises at warmup; it does not give wrong
+results.
 """
 from __future__ import annotations
 
@@ -82,16 +106,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import api, backends
+from repro_torch.core import distributed as _distributed
 from repro_torch.core import solve as _solve
 from repro_torch.core import structure as _structure
 from repro_torch.core.factor import CholFactor
 from repro_torch.core.precision import Precision, as_dtype
 from repro_torch.kernels._launch import on_device
 from repro_torch.obs import metrics as obs_metrics
-
-#: Where the store's sharded placement waits.
-SHARDED_ITEM = "ROADMAP queue 1 item 6b"
-
 
 def mutations_issued() -> int:
     """Cumulative batched mutations dispatched by every store."""
@@ -171,16 +192,24 @@ def row_dtype_for(factor_dtype) -> np.dtype:
     return np.dtype(np.float32)
 
 
-def _sharded_error() -> NotImplementedError:
-    return NotImplementedError(
-        f"the stream store's sharded placement (mesh=, backend='sharded') "
-        f"is not ported yet ({SHARDED_ITEM})")
+def fleet_placement(mesh, axis):
+    """The fleet placement, JAX's ``P(None, None, axis)``: ``(mesh',
+    placements)`` for a ``(B, n, n)`` ``DTensor`` whose batch and rows are
+    replicated and whose columns are sharded over ``axis`` (``mesh'`` is
+    ``mesh``, or its dims permuted into a tuple axis's order:
+    ``distributed._layout``)."""
+    axes = _distributed.axis_tuple(axis)
+    mesh, _ = _distributed._layout(mesh, axes)
+    return mesh, _distributed._placements(mesh, axes, 3)
 
 
 def _leaves(x) -> List[torch.Tensor]:
-    """A fleet value's tensors: the tensor itself, or (diag, off)."""
+    """A fleet value's tensors: the tensor itself (a ``DTensor``'s local
+    part, which aliases it), or (diag, off)."""
     if isinstance(x, _structure.BlockTriDiagStorage):
         return [x.diag, x.off]
+    if _distributed.is_sharded(x):
+        return [x.to_local()]
     return [x]
 
 
@@ -249,8 +278,8 @@ class StepSet:
     """A store's steps, keyed by (step, rung, width[s], dtype).
 
     ``call`` runs a step, building it at the first use of its key: that
-    counts one ``repro.stream.step_traces{step}`` on any device, and on
-    CUDA captures the step's graphs (after one eager run of the step on a
+    counts one ``repro.stream.step_traces{step}`` on any device, and where
+    the store's ``step_mode`` is 'graphs' captures the step's graphs (after one eager run of the step on a
     scratch copy of the fleet, on the capture stream, which builds the
     kernels and brings up the libraries the step calls). ``build`` does the
     same without running the step (warmup). ``cold_dispatches`` counts
@@ -301,12 +330,14 @@ class StepSet:
             return False
         t0 = time.perf_counter()
         step = self._store._make_step(name, cap, widths)
-        if self._store.device.type == "cuda":
+        if self._store.step_mode == "graphs":
             self._capture(step)
         self.entries[key] = step
         _count_trace(name)
-        obs_metrics.histogram("repro.stream.compile_seconds", step=name,
-                              sharded=0).observe(time.perf_counter() - t0)
+        obs_metrics.histogram(
+            "repro.stream.compile_seconds", step=name,
+            sharded=int(self._store.sharded)).observe(
+                time.perf_counter() - t0)
         return True
 
     def _capture(self, step: _Step) -> None:
@@ -360,15 +391,18 @@ class FactorStore:
         ``{1, width}``).
       panel / backend / interpret / precision: execution metadata threaded
         onto the fleet's ``CholFactor``.
-      mesh / axis: sharded placement, not ported yet: a ``mesh=`` or
-        ``backend='sharded'`` raises ``NotImplementedError``.
+      mesh / axis: sharded placement (with ``backend='sharded'``, and only
+        with it): every member column-sharded over ``axis`` of the
+        ``DeviceMesh`` (see the module docstring). The fleet lives on the
+        mesh's device; every rank constructs the store alike.
       init_scale: admitted slots start as the factor of ``init_scale * I``.
       dtype: logical dtype of the fleet (storage dtype under a precision
         policy); a torch dtype or its name.
       structure: 'dense' (``(B, n, n)``) or 'blocktridiag' (``(B, nb, b,
         b)`` block stacks; requires ``block=``).
       block: block size b for 'blocktridiag' (must divide n).
-      device: where the fleet lives (default CUDA).
+      device: where the fleet lives (default CUDA; a sharded fleet lives
+        on its mesh's device).
     """
 
     def __init__(self, n: int, *, capacity: int = 8, width: int = 16,
@@ -380,21 +414,33 @@ class FactorStore:
                  init_scale: float = 1.0, dtype=torch.float32,
                  structure: str = "dense", block: Optional[int] = None,
                  device=None):
-        del axis
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if mesh is not None or backend == "sharded":
-            raise _sharded_error()
+        if backend == "sharded" and mesh is None:
+            raise ValueError("backend='sharded' requires a mesh= placement")
+        if backend != "sharded" and mesh is not None:
+            # Dropping the mesh silently would leave a fleet sized for
+            # many ranks whole on one.
+            raise ValueError(
+                f"mesh= placement requires backend='sharded' "
+                f"(got backend={backend!r})")
         if structure not in SUPPORTED_STRUCTURES:
             raise UnsupportedStorageError(
                 f"fleet structure {structure!r} is not supported by the "
                 f"stream stack; supported: {SUPPORTED_STRUCTURES}")
-        device = api.default_device(device)
         if structure == "blocktridiag":
             if block is None or n % int(block):
                 raise ValueError(
                     f"structure='blocktridiag' requires block= dividing "
                     f"n={n}, got block={block}")
+            if mesh is not None:
+                raise UnsupportedStorageError(
+                    "structured fleets do not compose with mesh= placement "
+                    "yet (block-chain halo sharding is the open ROADMAP "
+                    "item); supported sharded structure: 'dense'")
+        device = (_distributed.mesh_device(mesh) if mesh is not None
+                  else api.default_device(device))
+        if structure == "blocktridiag":
             # An explicit dense-only backend fails here by name, and 'auto'
             # must resolve to a structured-capable method.
             backends.resolve(backend, n=n, panel=panel, interpret=interpret,
@@ -412,7 +458,7 @@ class FactorStore:
         self._setup(device, storage, structure,
                     int(block) if structure == "blocktridiag" else None,
                     dict(panel=panel, backend=backend, interpret=interpret,
-                         precision=policy), capacity)
+                         precision=policy, mesh=mesh, axis=axis), capacity)
         self._fill_fresh(self._base, 0, capacity)
         self._cap = capacity
         self._slot_of: Dict[object, int] = {}
@@ -425,7 +471,8 @@ class FactorStore:
                capacity: int) -> None:
         """Allocate the fleet and the static inputs: at the top rung on
         CUDA, refused when they exceed the card's free memory; at
-        ``capacity`` on the CPU."""
+        ``capacity`` on the CPU. ``meta``: the fleet factor's execution
+        metadata, ``mesh`` (None unsharded) and ``axis`` included."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -433,7 +480,21 @@ class FactorStore:
         self._storage = storage
         self._structure = structure
         self._block = block
+        self._mesh, self._axis = meta["mesh"], meta["axis"]
+        if self._mesh is not None:
+            axes = _distributed.axis_tuple(self._axis)
+            self._placed = fleet_placement(self._mesh, axes)
+            parts = _distributed.n_shards(self._mesh, axes)
+            if self.n % parts:
+                raise ValueError(f"n={self.n} must divide over {parts} "
+                                 "column shards")
+            self._w_loc = self.n // parts
+            self._col0 = (_distributed.shard_index(self._mesh, axes)
+                          * self._w_loc)
+        else:
+            self._w_loc, self._col0 = self.n, 0
         self._meta = meta
+        self.step_mode = self._step_mode()
         cuda = device.type == "cuda"
         self._held = self.ladder[-1] if cuda else capacity
         if cuda:
@@ -448,9 +509,38 @@ class FactorStore:
         self._alpha = torch.ones((), dtype=self._row_torch, **kw)
         self._steps = StepSet(self)
 
+    @property
+    def sharded(self) -> bool:
+        """True for a fleet placed over a mesh (``backend='sharded'``)."""
+        return self._mesh is not None
+
+    @property
+    def ranks(self) -> int:
+        """Ranks the fleet spans: its mesh's size (1 unsharded)."""
+        return self._mesh.size() if self._mesh is not None else 1
+
+    def _step_mode(self) -> str:
+        """'graphs' where every collective of a step can be captured (see
+        the module docstring; several NCCL ranks along the axis are
+        unverified), else 'eager'."""
+        if self.device.type != "cuda":
+            return "eager"
+        if self._mesh is None:
+            return "graphs"
+        import torch.distributed as dist
+
+        mesh, dims = _distributed._layout(
+            self._mesh, _distributed.axis_tuple(self._axis))
+        if all(mesh.size(d) == 1
+               or dist.get_backend(mesh.get_group(d)) == "nccl"
+               for d in dims):
+            return "graphs"
+        return "eager"
+
     def _check_fits(self) -> None:
-        """Refuse a CUDA store whose top-rung fleet and static V / Gram
-        blocks exceed the card's free memory."""
+        """Refuse a CUDA store whose top-rung fleet (this rank's columns
+        of it) and static V / Gram blocks exceed the card's free
+        memory."""
         n, top = self.n, self.ladder[-1]
         member = sum(t.numel() for t in self._alloc(None, "meta"))
         row = 8 if self._storage == torch.float64 else 4
@@ -496,7 +586,7 @@ class FactorStore:
             nb = self.n // b
             return [torch.zeros(lead + (nb, b, b), **kw),
                     torch.zeros(lead + (max(nb - 1, 0), b, b), **kw)]
-        return [torch.zeros(lead + (self.n, self.n), **kw)]
+        return [torch.zeros(lead + (self.n, self._w_loc), **kw)]
 
     def _root(self, scale: Optional[float] = None) -> float:
         """``sqrt(scale)`` in the fleet's row dtype, as the JAX package's
@@ -509,21 +599,39 @@ class FactorStore:
                     scale: Optional[float] = None) -> None:
         """Members ``lo:hi`` of a fleet's tensors become the warm start
         ``sqrt(scale) * I`` (the identity's block stacks for a structured
-        fleet): zeros, then the diagonal. Capture-safe (no host input)."""
+        fleet; a shard's columns of it for a sharded one): zeros, then the
+        diagonal. Capture-safe (no host input)."""
         root = self._root(scale)
         first = leaves[0][lo:hi]
         first.zero_()
-        first.diagonal(dim1=-2, dim2=-1).fill_(root)
+        first.diagonal(offset=-self._col0, dim1=-2, dim2=-1).fill_(root)
         for t in leaves[1:]:
             t[lo:hi].zero_()
 
     def _view(self, leaves, cap: int):
-        """The fleet value at rung ``cap`` over ``leaves``: a tensor, or a
-        ``BlockTriDiagStorage`` of the leading members."""
+        """The fleet value at rung ``cap`` over ``leaves``: a tensor, a
+        ``BlockTriDiagStorage`` of the leading members, or a sharded
+        fleet's ``DTensor`` over this rank's part of them."""
         if self._structure == "blocktridiag":
             return _structure.BlockTriDiagStorage(leaves[0][:cap],
                                                   leaves[1][:cap])
+        if self._mesh is not None:
+            return self._placed_value(leaves[0][:cap])
         return leaves[0][:cap]
+
+    def _placed_value(self, loc):
+        """The ``DTensor`` of the members whose local part is ``loc``
+        (``(c, n, w_loc)``, or one member ``(n, w_loc)``)."""
+        from torch.distributed.tensor import DTensor
+
+        mesh, placements = self._placed
+        if loc.ndim == 2:
+            placements = _distributed._placements(
+                mesh, _distributed.axis_tuple(self._axis), 2)
+        full = torch.Size(loc.shape[:-1] + (self.n,))
+        return DTensor.from_local(
+            loc, mesh, placements, run_check=False, shape=full,
+            stride=torch.empty(full, device="meta").stride())
 
     def _cf(self, data) -> CholFactor:
         return CholFactor(data, **self._meta)
@@ -560,8 +668,11 @@ class FactorStore:
 
         The fleet's values are copied into a new allocation on the factor's
         device (the top rung's on CUDA, refused when it exceeds the card's
-        free memory). The ladder defaults to a doubling ladder rooted at
-        the restored capacity. ``empty_slots``: the live store's free-slot
+        free memory). A sharded factor (``backend='sharded'``, its
+        ``mesh``/``axis``; a ``DTensor`` or the whole fleet on every rank)
+        restores the sharded placement: each rank keeps its columns. The
+        ladder defaults to a doubling ladder rooted at the restored
+        capacity. ``empty_slots``: the live store's free-slot
         order, next-assigned first; passing it makes restored admission pop
         the same slots the pre-crash process would have.
         """
@@ -571,9 +682,16 @@ class FactorStore:
                 f"(structure {factor.structure!r}), which the stream "
                 f"stack does not support; supported structures: "
                 f"{SUPPORTED_STRUCTURES}")
-        if factor.backend == "sharded" or factor.mesh is not None:
-            raise _sharded_error()
-        storage = factor.storage
+        mesh = factor.mesh if factor.backend == "sharded" else None
+        if factor.backend == "sharded" and mesh is None:
+            raise ValueError("backend='sharded' requires a mesh= placement")
+        if mesh is not None and factor.structure != "dense":
+            raise UnsupportedStorageError(
+                "structured fleets do not compose with mesh= placement; "
+                "supported sharded structure: 'dense'")
+        # The layout view reads shapes only: a sharded fleet is not
+        # gathered here.
+        storage = _structure.as_storage(factor.data)
         if not factor.batched:
             raise UnsupportedStorageError(
                 f"fleet factor must be batched — (B, n, n) dense or a "
@@ -591,13 +709,20 @@ class FactorStore:
                 f"restored capacity {cap} is not a rung of the ladder "
                 f"{self.ladder}")
         self.init_scale = float(init_scale)
-        self._setup(factor.device, factor.dtype, factor.structure,
+        data = factor.data
+        device = factor.device
+        if mesh is not None:
+            # Each rank keeps its own columns of the restored fleet.
+            data = _distributed.shard(data, mesh, factor.axis)
+            device = _distributed.mesh_device(mesh)
+        self._setup(device, factor.dtype, factor.structure,
                     storage.block if factor.structure == "blocktridiag"
                     else None,
                     dict(panel=factor.panel, backend=factor.backend,
                          interpret=factor.interpret,
-                         precision=factor.precision), cap)
-        for dst, src in zip(self._base, _leaves(factor.data)):
+                         precision=factor.precision, mesh=mesh,
+                         axis=factor.axis), cap)
+        for dst, src in zip(self._base, _leaves(data)):
             dst[:cap].copy_(src)
         self._cap = cap
         self._slot_of = dict(slots)
@@ -686,6 +811,8 @@ class FactorStore:
         if self._structure == "blocktridiag":
             member = _structure.BlockTriDiagStorage(fleet.diag[s].clone(),
                                                     fleet.off[s].clone())
+        elif self._mesh is not None:
+            member = self._placed_value(self._base[0][s].clone())
         else:
             member = fleet[s].clone()
         return self._cf(member)
@@ -738,6 +865,24 @@ class FactorStore:
                 _write(F, self._cf(F).update(vb("up", wu)).data)
 
             return _Step([up], None, cap)
+        if name in ("down", "both") and self._mesh is not None:
+            # The sharded verdict is device ops and a MIN all_reduce: the
+            # guarded downdate is one part.
+            both = name == "both"
+            if both:
+                vb("up", wu)
+            vb("dn", wd)
+
+            def guarded(base):
+                F = view(base)
+                f = self._cf(F)
+                if both:
+                    f = f.update(vb("up", wu))
+                new, ok = f.downdate_guarded(vb("dn", wd))
+                _write(F, new.data)
+                self._ok[:cap].copy_(ok)
+
+            return _Step([guarded], None, cap)
         if name in ("down", "both"):
             both = name == "both"
             if both:

@@ -9,10 +9,13 @@ width buckets are FIXED and enumerable, so is every step a flush can run.
 
 ``warmup_store(store)`` walks ``store.ladder`` × ``store.widths`` and builds
 the up / down / both / scale / slot_set steps of each rung (``both`` for
-every pair of widths) plus ``promote`` for each rung boundary. On CUDA a
+every pair of widths) plus ``promote`` for each rung boundary. Where the
+store's ``step_mode`` is 'graphs' (CUDA, every collective capturable) a
 build runs the step once eagerly on a scratch copy of the fleet, on the
-capture stream (the kernels are built first), then captures its graphs;
-on the CPU it records the eager step. The built steps live in the store's
+capture stream (the kernels are built first, and a sharded step's mesh
+layouts and process groups are made there, never inside a capture), then
+captures its graphs; elsewhere (the CPU, a sharded store over gloo with
+more than one rank) it records the eager step. The built steps live in the store's
 ``StepSet``, so after warmup admit, flush, evict, readmit, decay and rung
 promotion never build.
 
@@ -83,8 +86,9 @@ class WarmupReport:
       compile_seconds: seconds per step kind for the steps built by this
         call (the graph captures on CUDA, their eager warm-up run
         included); the same timings land in the registry histogram
-        ``repro.stream.compile_seconds{step=...,sharded=0}``.
-      graphs: CUDA graphs captured by this call (0 on the CPU).
+        ``repro.stream.compile_seconds{step=...,sharded=0|1}``.
+      graphs: CUDA graphs captured by this call (0 where the store's
+        ``step_mode`` is 'eager').
       lowering: the fused-kernel lowering the steps run ('portable' or
         'mosaic', one kernel).
     """

@@ -375,32 +375,49 @@ def test_api_validation_and_dtype_pin():
     np.testing.assert_allclose(down.numpy(), L, atol=tol_for(np.float32, n))
 
 
-def test_requires_grad_raises_on_every_path():
+def test_requires_grad_takes_every_path(tmp_path):
     """An input that requires a gradient used to raise on every path; now
-    ``auto``, ``fused``, ``reference`` and the batched path return
-    gradients (the Murray rule, ``core.autodiff``), which agree with each
-    other, and only ``method='sharded'`` raises, naming ROADMAP queue 1
-    item 6b."""
+    ``auto``, ``fused``, ``reference``, ``sharded`` (on a one-rank gloo
+    mesh) and the batched path return gradients (the Murray rule,
+    ``core.autodiff``), and each agrees with the reference path's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
     L, V = problem(8, 1)
-    grads = {}
-    for method in ("auto", "fused", "reference"):
-        Lg = t(L).requires_grad_(True)
-        out = api.chol_update(Lg, t(V), method=method)
-        assert out.requires_grad
-        torch.sum(out ** 2).backward()
-        grads[method] = Lg.grad
-        assert bool(torch.isfinite(Lg.grad).all())
-    for method in ("auto", "fused"):
-        torch.testing.assert_close(grads[method], grads["reference"],
-                                   rtol=0, atol=tol_for(np.float32, 8))
-    Vg = t(V[None]).requires_grad_(True)
-    api.chol_update_batched(t(L[None]), Vg).sum().backward()
-    assert Vg.grad.shape == (1, 8, 1) and bool(torch.isfinite(Vg.grad).all())
-    for fn, args in ((api.chol_update, (t(L).requires_grad_(True), t(V))),
-                     (api.chol_update_batched,
-                      (t(L[None]), t(V[None]).requires_grad_(True)))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
-            fn(*args, method="sharded", mesh=object())
+    own_group = not dist.is_initialized()
+    if own_group:
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                                world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+        grads = {}
+        for method in ("auto", "fused", "reference", "sharded"):
+            Lg = t(L).requires_grad_(True)
+            kw = {"mesh": mesh, "panel": 4} if method == "sharded" else {}
+            out = api.chol_update(Lg, t(V), method=method, **kw)
+            assert out.requires_grad
+            loc = out.to_local() if method == "sharded" else out
+            torch.sum(loc ** 2).backward()
+            grads[method] = Lg.grad
+            assert bool(torch.isfinite(Lg.grad).all())
+        for method in ("auto", "fused", "sharded"):
+            torch.testing.assert_close(grads[method], grads["reference"],
+                                       rtol=0, atol=tol_for(np.float32, 8))
+        gv = {}
+        for method, kw in (("fused", {}),
+                           ("sharded", {"mesh": mesh, "panel": 4})):
+            Vg = t(V[None]).requires_grad_(True)
+            out = api.chol_update_batched(t(L[None]), Vg, method=method,
+                                          **kw)
+            (out.to_local() if method == "sharded" else out).sum().backward()
+            assert Vg.grad.shape == (1, 8, 1)
+            assert bool(torch.isfinite(Vg.grad).all())
+            gv[method] = Vg.grad
+        torch.testing.assert_close(gv["sharded"], gv["fused"], rtol=0,
+                                   atol=tol_for(np.float32, 8))
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):

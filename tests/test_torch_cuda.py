@@ -1380,3 +1380,271 @@ def test_cholesky_precond_step_on_cuda_matches_cpu(cuda, monkeypatch):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(runs["cuda"][1], runs["cpu"][1], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The stream store's sharded placement and sharded gradients on the card.
+# ---------------------------------------------------------------------------
+
+
+def sharded_stream_store(mesh, dtype, **kw):
+    """A warmed two-rung (2, 4) store, widths (1, 4), sharded over the
+    one-rank mesh: its steps are captured graphs of the sharded driver."""
+    from repro_torch.stream import FactorStore
+
+    dt, acc = DTYPES[dtype]
+    opts = dict(capacity=2, ladder=(2, 4), width=4, widths=(1, 4), panel=32,
+                dtype=torch.float32 if acc else dt,
+                precision="bf16" if acc else None, backend="sharded",
+                mesh=mesh)
+    opts.update(kw)
+    st = FactorStore(STREAM_N, **opts)
+    st.warmup()
+    return st
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sharded_stream_replay_equals_the_eager_step(cuda, cuda_mesh, dtype):
+    """A one-rank sharded store's replayed steps equal the eager calls on
+    a copy of the fleet (``CholFactor.update``, ``downdate_guarded``,
+    ``scale``), bit for bit, verdicts included; one graph a step (the
+    guarded downdate too: its verdict is device ops)."""
+    st = sharded_stream_store(cuda_mesh, dtype)
+    assert st.step_mode == "graphs"
+    assert st.steps.graphs == st.steps.executables
+    meta = st._meta
+    for u in "ab":
+        st.admit(u)
+
+    def eager():
+        return CholFactor(distributed.gather(st.factor.data).clone(), **meta)
+
+    def equal(ref):
+        return torch.equal(distributed.gather(st.factor.data),
+                           distributed.gather(ref.data))
+
+    up = stream_rows(st, 4, seed=2)
+    before = eager()
+    assert st.apply(up, None) is None
+    assert equal(before.update(torch.from_numpy(up).to(cuda))), "up"
+    for both in (False, True):
+        dn = stream_rows(st, 1 if both else 4, seed=3 + both, scale=0.05)
+        dn[1] *= 100.0                     # member 1: infeasible
+        vup = stream_rows(st, 4, seed=5) if both else None
+        before = eager()
+        ok = st.apply(vup, dn)
+        if both:
+            before = before.update(torch.from_numpy(vup).to(cuda))
+        ref, ok_ref = before.downdate_guarded(torch.from_numpy(dn).to(cuda))
+        assert ok.tolist() == ok_ref.tolist() == [True, False]
+        assert equal(ref), "both" if both else "down"
+    before = eager()
+    st.decay(0.9)
+    alpha = torch.tensor(st.row_dtype.type(0.9), device=cuda)
+    assert equal(before.scale(alpha)), "scale"
+    st.admit("c")
+    st.admit("d")                           # promote 2 -> 4
+    assert st.capacity == 4 and st.steps.cold_dispatches == 0
+
+
+def test_sharded_guarded_step_verdicts_equal_downdate_guarded(cuda,
+                                                               cuda_mesh):
+    """The store's guarded step (a replayed graph) against
+    ``CholFactor.downdate_guarded`` on the same sharded factor: the same
+    verdicts (members 1 and 3 infeasible) and the same fleet, bit for
+    bit."""
+    st = sharded_stream_store(cuda_mesh, "fp32")
+    for u in "abcd":
+        st.admit(u)
+    st.apply(stream_rows(st, 4, seed=7), None)
+    dn = stream_rows(st, 4, seed=8, scale=0.05)
+    dn[[1, 3]] *= 100.0
+    f = CholFactor(st.factor.data.clone(), **st._meta)
+    ref, ok_ref = f.downdate_guarded(torch.from_numpy(dn).to(cuda))
+    ok = st.apply(None, dn)
+    assert ok.tolist() == ok_ref.tolist() == [True, False, True, False]
+    assert torch.equal(distributed.gather(st.factor.data),
+                       distributed.gather(ref.data))
+
+
+@pytest.mark.parametrize("sigma", [1, -1])
+def test_sharded_grad_on_cuda_matches_the_rule_on_cpu(cuda, cuda_mesh,
+                                                      sigma):
+    """Gradients through ``method='sharded'`` on the card (the kernels in
+    the forward, none in the backward) against the dense rule around the
+    plain chain on the CPU: a B = 2 fleet, n = 96, k = 5, fp32, within
+    tol_for(fp32, n) kappa_2(L~) relative to the largest CPU gradient; L
+    given whole and as a ``DTensor`` (its gradient then a ``DTensor``)."""
+    n, k, panel = 96, 5, 32
+    L, V = spd(2, n, k, torch.float32, sigma, cuda, seed=4)
+    counters = [SH.LAUNCHES, *K.LAUNCHES.values()]
+
+    def run(L, V, method, **kw):
+        L = L.detach().clone().requires_grad_(True)
+        V = V.detach().clone().requires_grad_(True)
+        out = chol_update_batched(L, V, sigma=sigma, method=method,
+                                  panel=panel, **kw)
+        loc = out.to_local() if distributed.is_sharded(out) else out
+        before = sum(c.count for c in counters)
+        gs = torch.autograd.grad(grad_loss(loc), [L, V])
+        assert sum(c.count for c in counters) == before, "a backward launch"
+        return loc.detach(), gs
+
+    (out_cpu, g_cpu) = run(L.cpu(), V.cpu(), "fused")
+    bound = 50 * torch.finfo(torch.float32).eps * n * kappa2(out_cpu)
+    for L_in in (L, distributed.shard(L, cuda_mesh)):
+        before = sum(c.count for c in counters)
+        _, g_card = run(L_in, V, "sharded", mesh=cuda_mesh)
+        torch.cuda.synchronize()
+        want = SH.kernel_launches(n, panel, strategy="fused", k=k)
+        assert sum(c.count for c in counters) - before == sum(want.values())
+        assert distributed.is_sharded(g_card[0]) == distributed.is_sharded(
+            L_in)
+        for a, b in zip(g_card, g_cpu):
+            a = distributed.gather(a)
+            assert a.dtype == torch.float32
+            err = float((a.cpu() - b).abs().max() / b.abs().max())
+            assert err <= bound, (err, bound)
+
+
+# -- the examples on the card ------------------------------------------------
+
+def kernel_launches():
+    """Every kernel's launch count so far, by kernel."""
+    out = {"fused_chain": F.LAUNCHES.count, "btd_chain": BT.LAUNCHES.count,
+           "panel_apply_sharded": SH.LAUNCHES.count}
+    out.update({name: c.count for name, c in K.LAUNCHES.items()})
+    return out
+
+
+def launches_since(before):
+    return {k: v - before[k] for k, v in kernel_launches().items()
+            if v != before[k]}
+
+
+def test_quickstart_runs_on_the_card(cuda):
+    """``quickstart.run`` on the card against the same run on the CPU (the
+    kernels' plain versions), within tol_for(fp32, n). As in the JAX
+    package, methods 'gemm' and 'paper' are the blocked routes in plain
+    operations (no kernel); 'pallas_gemm' at n = 512, panel 128 launches
+    4 ``diag_block`` and 3 gemm applies, and the factor object's update,
+    guarded downdate and downdate one fused chain each."""
+    from repro_torch.examples import quickstart
+
+    before = kernel_launches()
+    card = quickstart.run(device="cuda")
+    torch.cuda.synchronize()
+    got = launches_since(before)
+    print(f"quickstart launches on the card: {got}")
+    cpu = quickstart.run(device="cpu")
+    tol = 50 * torch.finfo(torch.float32).eps * 512
+    for name in ("L_up", "L_up2", "L_back", "L_pal", "f_back"):
+        err = float((card[name].cpu() - cpu[name]).abs().max())
+        assert err <= tol, (name, err, tol)
+    for name in ("x", "x2"):
+        err = float((card[name].cpu() - cpu[name]).abs().max())
+        assert err <= tol * float(cpu[name].abs().max()), (name, err)
+    assert card["guard_ok"] is False
+    assert abs(card["logdet"] - cpu["logdet"]) <= 5e-3 + tol * abs(
+        cpu["logdet"])
+    assert got == {"fused_chain": 3, "diag_block": 4,
+                   "panel_apply_gemm": 3}, got
+
+
+def test_online_ridge_runs_on_the_card(cuda):
+    """``online_ridge``'s single stream and ``--batched`` fleet on the
+    card: every row within the example's own bound of the exact windowed
+    solve, the batched fleet in six mutations, both through the fused
+    chain: the single stream one launch for each of its 12 updates and 8
+    downdates."""
+    from repro_torch.examples import online_ridge
+
+    before = kernel_launches()
+    rows = online_ridge.run_single(device="cuda")
+    torch.cuda.synchronize()
+    single = launches_since(before)
+    before = kernel_launches()
+    brows, muts = online_ridge.run_batched(device="cuda")
+    torch.cuda.synchronize()
+    batched = launches_since(before)
+    print(f"online_ridge launches on the card: single {single}, batched "
+          f"{batched}")
+    assert len(rows) == 12 and all(e < 5e-3 for _, e, _ in rows)
+    assert [r[0] for r in brows] == [1, 3, 5, 7] and muts == 6
+    assert all(e < 5e-3 for _, e, _ in brows)
+    assert single == {"fused_chain": 20}, single
+    assert set(batched) == {"fused_chain"}, batched
+
+
+def _ridge_rank(d):
+    """One rank of ``online_ridge --sharded`` on the card: its rows,
+    mutations and launches, into ``d``."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.examples import online_ridge
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = kernel_launches()
+    rows, muts = online_ridge.run_batched(sharded=True, device="cuda")
+    torch.cuda.synchronize()
+    with open(f"{d}/rank{dist.get_rank()}.json", "w") as f:
+        json.dump({"rows": rows, "muts": muts,
+                   "launches": launches_since(before)}, f)
+
+
+def test_online_ridge_sharded_on_four_ranks_sharing_the_card(cuda,
+                                                             tmp_path):
+    """``online_ridge --sharded``'s run on four gloo ranks sharing the card
+    (``run_gloo_ranks``, as the example starts them): every rank's rows
+    equal, within the example's bound of the exact solve and of the
+    unsharded fleet's rows on the card; every rank launches the sharded
+    driver's kernels alike, and no fused chain: per mutation (one sign
+    block, k = 16) 64 / 16 ``diag_block`` and one ``panel_apply_sharded``
+    (a step_mode 'eager' warmup launches nothing)."""
+    import json
+
+    from repro_torch.examples import online_ridge
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.compat import run_gloo_ranks
+
+    _build.build_all()  # once here, not in each rank
+    run_gloo_ranks(4, _ridge_rank, (str(tmp_path),), timeout=300)
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(4)]
+    print("online_ridge --sharded launches on the card, by rank: "
+          f"{[r['launches'] for r in ranks]}")
+    want, muts = online_ridge.run_batched(device="cuda")
+    true_w = np.random.default_rng(0).normal(size=(4, 64))
+    scale = np.sqrt(64) / np.linalg.norm(true_w, axis=1).min()
+    for r in ranks:
+        assert r["rows"] == ranks[0]["rows"] and r["muts"] == muts == 6
+        assert r["launches"] == ranks[0]["launches"]
+        for (t, e, w), (tw, ew, ww) in zip(r["rows"], want):
+            assert t == tw and e < 5e-3
+            assert abs(w - ww) <= 1e-4 + scale * (e + ew), t
+    got = ranks[0]["launches"]
+    assert got == {"diag_block": 4 * muts, "panel_apply_sharded": muts}, got
+
+
+def test_kalman_smoother_runs_on_the_card(cuda):
+    """``kalman_smoother.run`` on the card (the block chain) against the
+    same run on the CPU: each within the example's own bound of the dense
+    posterior (the run asserts it), so their means within the sum of the
+    two errors; the outlier's pull and the RMSE alike. One block-chain
+    launch for each of the four chunk updates and the outlier's update
+    and downdate."""
+    from repro_torch.examples import kalman_smoother
+
+    before = kernel_launches()
+    card = kalman_smoother.run(device="cuda")
+    torch.cuda.synchronize()
+    got = launches_since(before)
+    print(f"kalman_smoother launches on the card: {got}")
+    cpu = kalman_smoother.run(device="cpu")
+    assert float(np.abs(card["xs"] - cpu["xs"]).max()) <= (
+        card["err"] + cpu["err"] + 1e-6)
+    assert abs(card["rmse"] - cpu["rmse"]) <= 5e-4
+    assert abs(card["pull"] - cpu["pull"]) <= 5e-3
+    assert got == {"btd_chain": 6}, got

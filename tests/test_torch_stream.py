@@ -314,11 +314,26 @@ def test_store_errors_match_jax(pkg):
                         backend="gemm", **dev)
 
 
-def test_mesh_placement_raises_naming_its_roadmap_item():
-    for kw in ({"mesh": object(), "backend": "sharded"},
-               {"backend": "sharded"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            tstream.FactorStore(N, device="cpu", **kw)
+@pytest.mark.parametrize("kw, err, match", [
+    ({"backend": "sharded"}, ValueError, "requires a mesh"),
+    ({"mesh": object()}, ValueError, "requires backend='sharded'"),
+    ({"mesh": object(), "backend": "reference"}, ValueError,
+     "requires backend='sharded'"),
+    ({"mesh": object(), "backend": "sharded", "structure": "blocktridiag",
+      "block": BLOCK}, "unsupported", "do not compose with mesh"),
+], ids=["sharded_without_mesh", "mesh_without_sharded",
+        "mesh_with_reference", "mesh_with_blocktridiag"])
+def test_mesh_placement_misuse_raises_like_jax(kw, err, match):
+    """A sharded placement asked for half-way is refused before anything
+    is built, by both packages with the same exception type and message
+    (the mesh itself is never touched)."""
+    for pkg, dev in ((jstream, {}), (tstream, {"device": "cpu"})):
+        exc = err
+        if err == "unsupported":
+            exc = (jstream.store.UnsupportedStorageError if pkg is jstream
+                   else tstore.UnsupportedStorageError)
+        with pytest.raises(exc, match=match):
+            pkg.FactorStore(N, **kw, **dev)
 
 
 def test_row_dtype_and_bf16_fleet_storage():

@@ -183,19 +183,29 @@ def test_wal_segments_rotate_and_prune_like_jax(tmp_path):
     assert files[0] == files[1]
 
 
-def test_sharded_records_raise_naming_the_roadmap_item(tmp_path):
-    svc = service(tstream, "dense")
-    drive(svc, traffic()[:6])
-    tstream.checkpoint_service(svc, tmp_path, step=1)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        restore(tstream, tmp_path, mesh=object())
-    meta_path = tmp_path / "step_00000001" / "tree.json"
-    meta = json.loads(meta_path.read_text())
-    meta["extra"]["stream"]["mesh"] = {"axes": ["model"], "shape": [4],
-                                       "axis": "model"}
-    meta_path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        restore(tstream, tmp_path)
+def test_sharded_records_restore_like_jax(tmp_path):
+    """Both packages refuse a ``mesh=`` override for an unsharded
+    checkpoint with the same message, and both fail loudly on a mesh
+    record of four ranks in a process that has no such mesh (one device
+    for JAX, no four-rank process group here) instead of restoring the
+    fleet whole. The restores that succeed are in
+    ``tests/test_torch_stream_sharded.py`` (one rank) and
+    ``tests/test_torch_sharded_multi.py`` (four ranks, across packages)."""
+    for pkg in (jstream, tstream):
+        d = tmp_path / pkg.__name__
+        svc = service(pkg, "dense")
+        drive(svc, traffic()[:6])
+        pkg.checkpoint_service(svc, d, step=1)
+        with pytest.raises(ValueError, match="carries no sharded-fleet"):
+            restore(pkg, d, mesh=object())
+        meta_path = d / "step_00000001" / "tree.json"
+        meta = json.loads(meta_path.read_text())
+        assert meta["extra"]["stream"]["mesh"] is None
+        meta["extra"]["stream"]["mesh"] = {"axes": ["model"], "shape": [4],
+                                           "axis": "model"}
+        meta_path.write_text(json.dumps(meta))
+        with pytest.raises((ValueError, RuntimeError)):
+            restore(pkg, d)
 
 
 def test_row_codec_round_trips_like_jax():
