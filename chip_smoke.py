@@ -42,6 +42,13 @@ user calls, and holds every kernel against its plain torch version:
   ``method='sharded'`` at n = 5120 and on the B = 64 fleet, and, in the
   four-rank spawn, a sharded store's traffic, checkpoints restored across
   rank counts and gradients, each against one rank.
+* the LM serving path (path 3l): ``launch.serve.generate`` on full-width
+  h2o-danube-1.8b (bf16, batch 8, prompt 32, 64 sampled tokens; plain
+  torch, no repo kernel) with its step times beside the HBM bound, decode
+  against forward at full width, the nine decoder-only architectures at
+  ``reduced()`` on the card against the CPU, and ``serve_lm``'s
+  personalization sidecar over the generated tokens, each flush's
+  ``fused_chain`` launches held to its budget.
 
 Builds every kernel from the sources in ``src/repro_torch/kernels/csrc``,
 checks the launches each path takes (counts set to 0 just before a path
@@ -55,6 +62,8 @@ Usage: python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -1632,6 +1641,308 @@ def train_phase(torch, np, dev, seed, dense, fleet, wide, card,
     return path
 
 
+# -- the serve phase (path 3l) ------------------------------------------------
+#
+# The port's LM serving path: launch.serve.generate on full-width
+# h2o-danube-1.8b (plain torch operations, no repo kernel), decode against
+# forward, the nine decoder-only architectures at reduced() on the card
+# against the CPU, and serve_lm's personalization sidecar, whose flushes
+# launch the fused chain.
+
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "h2o-danube-1.8b", 8, 32, 64
+SERVE_TEMPERATURE = 0.8
+#: Decode against forward at full width, 16 tokens, B = 2 (PERF.md §2):
+#: fp32 parameters under the JAX test's own limits (rtol 2e-2, atol 2e-3,
+#: elementwise); bf16 parameters with an fp32 cache (the serve mix) within
+#: 16 bf16 unit roundoffs of the largest logit: the forward rounds K/V
+#: and the attention weights to bf16, the decode keeps them in fp32.
+SERVE_TF_LEN, SERVE_TF_BF16_UNITS = 16, 16
+
+
+def _serve_decoder_archs():
+    from repro_torch.configs import ARCHS
+
+    return [n for n in sorted(ARCHS) if ARCHS[n].family != "encdec"]
+
+
+def _reduced_on_card(torch, np, dev, seed):
+    """Path 3l (c): each decoder-only architecture at reduced(), weights
+    drawn on the CPU and carried to the card (params_to_numpy ->
+    params_from_numpy): forward and four decode steps on both, within fp32
+    tol_for(d_model * num_layers) * (1 + max |cpu|). Returns the worst
+    (err / limit) by architecture."""
+    from repro_torch import interop
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_model
+
+    out = {}
+    for i, name in enumerate(_serve_decoder_archs()):
+        cfg = ARCHS[name].reduced()
+        cpu = init_model(cfg, device="cpu", seed=seed + i)
+        card = interop.params_from_numpy(interop.params_to_numpy(cpu), cfg,
+                                         device=dev)
+        rng = np.random.default_rng([seed, i])
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
+                                .astype(np.int32))
+        batch = {"tokens": toks}
+        if cfg.family == "vlm":
+            batch["embeds"] = torch.from_numpy(rng.normal(
+                size=(2, 1, cfg.d_model)).astype(np.float32))
+        tol = 50 * float(torch.finfo(torch.float32).eps) * (
+            cfg.d_model * cfg.num_layers)
+        worst = 0.0
+        with torch.no_grad():
+            pairs = [(forward(cpu, cfg, batch), forward(
+                card, cfg, {k: v.to(dev) for k, v in batch.items()}))]
+            cc = init_cache(cfg, 2, 8, torch.float32, device="cpu")
+            cg = init_cache(cfg, 2, 8, torch.float32, device=dev)
+            for t in range(4):
+                lc, cc = decode_step(cpu, cfg, cc, toks[:, t])
+                lg, cg = decode_step(card, cfg, cg, toks[:, t].to(dev))
+                pairs.append((lc, lg))
+                pairs += [(cc[k], cg[k]) for k in cc if k != "pos"]
+        for ref, got in pairs:
+            err = float((got.cpu().float() - ref.float()).abs().max())
+            worst = max(worst, err / (tol * (1 + float(ref.abs().max()))))
+        out[name] = worst
+    return out
+
+
+def _device_profile(torch, fn, reps):
+    """(device ms a call, device kernels a call) of ``fn`` from
+    ``torch.profiler`` (the kernels' self times and counts), or (None,
+    None) where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us += (getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+            kernels += e.count
+    if us <= 0:
+        return None, None
+    return us / 1e3 / reps, kernels / reps
+
+
+@contextlib.contextmanager
+def _sidecar_instrument(torch, flushes):
+    """Within: every ``FactorStore.apply`` (a served flush; warmup calls
+    none) records its launches (by kernel), its budget (ceil(w/32)
+    fused_chain a dense sign block) and its time (host clock around the
+    synced apply) in ``flushes``."""
+    from repro_torch.stream import FactorStore
+
+    orig = FactorStore.apply
+
+    def apply(store, Vup=None, Vdn=None):
+        blocks = [V for V in (Vup, Vdn) if V is not None]
+        torch.cuda.synchronize()
+        c0, t0 = _launch_counts(), time.perf_counter()
+        ok = orig(store, Vup, Vdn)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v for k, v in
+               _counts_minus(_launch_counts(), c0).items() if v}
+        want = {"fused_chain": sum(-(-V.shape[-1] // 32) for V in blocks)}
+        flushes.append({"got": got, "want": want, "ms": ms,
+                        "widths": [V.shape[-1] for V in blocks]})
+        return ok
+
+    FactorStore.apply = apply
+    try:
+        yield
+    finally:
+        FactorStore.apply = orig
+
+
+def serve_phase(torch, np, dev, seed, card):
+    """Path 3l. Returns the sidecar's served launches (its flushes, not its
+    warmup) by kernel."""
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_model, param_count
+
+    t_start = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    # (a) full-width decode through the serve driver.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model = init_model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    pbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompts = SyntheticTokens(DataConfig(cfg.vocab_size, SERVE_PROMPT,
+                                         SERVE_BATCH, seed=2)).batch_at(0)
+    cache_len = SERVE_PROMPT + SERVE_GEN
+    toks, tps = serve.generate(cfg, model, prompts["tokens"], gen=SERVE_GEN,
+                               cache_len=cache_len,
+                               temperature=SERVE_TEMPERATURE, seed=seed)
+    c0 = init_cache(cfg, SERVE_BATCH, cache_len, torch.float32, device=dev)
+    cbytes = sum(t.numel() * t.element_size() for t in c0.values())
+    check(tuple(toks.shape) == (SERVE_BATCH, cache_len)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+          and torch.equal(toks[:, :SERVE_PROMPT].cpu(), prompts["tokens"]),
+          "serve: generated tokens off the vocabulary or the prompt")
+    # The same sequence teacher-forced through decode_step, each step timed
+    # by CUDA events and its logits checked finite.
+    step_ms, finite, cache = [], True, c0
+    with torch.inference_mode():
+        for t in range(cache_len):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            lg, cache = decode_step(model, cfg, cache, toks[:, t])
+            b.record()
+            finite &= bool(torch.isfinite(lg).all())
+            b.synchronize()
+            step_ms.append(a.elapsed_time(b))
+    check(finite, "serve: non-finite decode logits at full width")
+    gen_ms = np.asarray(step_ms[SERVE_PROMPT:])
+    # Where a step's time goes: the device's own time in it (the kernels'
+    # sum) against the step, and the kernels a step launches.
+    with torch.inference_mode():
+        dev_ms, kernels = _device_profile(
+            torch, lambda: decode_step(model, cfg, cache, toks[:, -1]), 3)
+    # The bytes a sampled step at position p must move: every parameter
+    # but the embedding table, B rows of it, the p cache slots it reads
+    # and the one it writes (K and V, every layer), its fp32 logits.
+    emb = model["embed"]["tokens"]
+    slot_bytes = sum(t.numel() * t.element_size() for t in c0.values()
+                     if t.dim() == 5) / cache_len
+    step_bytes = [pbytes - emb.numel() * emb.element_size()
+                  + SERVE_BATCH * emb.shape[1] * emb.element_size()
+                  + (min(p, cache_len) + 1) * slot_bytes
+                  + SERVE_BATCH * cfg.vocab_padded * 4
+                  for p in range(SERVE_PROMPT, cache_len)]
+    bound_ms = float(np.mean(step_bytes)) / HBM_BYTES_PER_S * 1e3
+    whole_ms = (pbytes + cbytes) / HBM_BYTES_PER_S * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"path 3l (a) serve {SERVE_ARCH} full width "
+          f"({param_count(model)} parameters, {pbytes / 1e9:.3f} GB "
+          f"{cfg.param_dtype}; init {t_init:.1f} s) batch {SERVE_BATCH}, "
+          f"prompt {SERVE_PROMPT}, {SERVE_GEN} generated at temperature "
+          f"{SERVE_TEMPERATURE}, fp32 cache {cbytes / 1e6:.1f} MB, on {card}: "
+          f"{tps:.1f} tokens/s; decode step p50 "
+          f"{np.percentile(gen_ms, 50):.3f} / p90 "
+          f"{np.percentile(gen_ms, 90):.3f} ms (CUDA events, the "
+          f"{len(gen_ms)} sampled positions; prompt steps p50 "
+          f"{np.percentile(step_ms[:SERVE_PROMPT], 50):.3f}); HBM bound "
+          f"(the bytes a sampled step moves, mean over its positions, over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) {bound_ms:.3f} ms, p50 / "
+          f"bound {np.percentile(gen_ms, 50) / bound_ms:.2f} (all "
+          f"parameters + the whole cache: {whole_ms:.3f} ms); peak memory "
+          f"{peak_gb - base_gb:.2f} GB above the {base_gb:.2f} GB the "
+          f"smoke held before; logits finite {finite}")
+    if dev_ms is None:
+        print("  decode step device time: not measured (the profiler shows "
+              "no device time)")
+    else:
+        print(f"  decode step device time {dev_ms:.3f} ms (torch.profiler, "
+              f"the kernels' sum), {kernels:.0f} kernels a step; busy share "
+              f"of the p50 step {dev_ms / np.percentile(gen_ms, 50):.3f}, "
+              f"device / bound {dev_ms / bound_ms:.2f}")
+    print(f"  sample: {toks[0, SERVE_PROMPT:SERVE_PROMPT + 16].tolist()}")
+
+    # (b) decode against forward on a fixed 16-token sequence, bf16 (the
+    # served parameters, fp32 cache) and an fp32 copy.
+    seq = SyntheticTokens(DataConfig(cfg.vocab_size, SERVE_TF_LEN, 2,
+                                     seed=3)).batch_at(0)["tokens"].to(dev)
+    u16 = float(torch.finfo(torch.bfloat16).eps) / 2
+    for what, m in (("bf16", model), ("fp32", None)):
+        if m is None:
+            m = model.float()
+            cfg_m = dataclasses.replace(cfg, param_dtype="float32")
+        else:
+            cfg_m = cfg
+        with torch.inference_mode():
+            full = forward(m, cfg_m, {"tokens": seq})
+            c = init_cache(cfg_m, 2, SERVE_TF_LEN, torch.float32, device=dev)
+            outs = []
+            for t in range(SERVE_TF_LEN):
+                lg, c = decode_step(m, cfg_m, c, seq[:, t])
+                outs.append(lg)
+        dec = torch.stack(outs, 1)
+        diff = (dec - full).abs()
+        big = float(full.abs().max())
+        if what == "bf16":
+            lim = SERVE_TF_BF16_UNITS * u16 * big
+            ok = float(diff.max()) <= lim
+            how = (f"max |dec - fwd| {float(diff.max()):.4f} against "
+                   f"{SERVE_TF_BF16_UNITS} u_bf16 x max |fwd| {big:.3f} = "
+                   f"{lim:.4f} ({float(diff.max()) / (u16 * big):.2f} u)")
+        else:
+            excess = float((diff - (2e-3 + 2e-2 * full.abs())).max())
+            ok = excess <= 0
+            how = (f"max |dec - fwd| {float(diff.max()):.3e} (max |fwd| "
+                   f"{big:.3f}); worst of |dec - fwd| - (2e-3 + 2e-2 |fwd|)"
+                   f" {excess:.3e} (limit 0)")
+        print(f"path 3l (b) decode vs forward, {what} parameters, "
+              f"{SERVE_TF_LEN} tokens, B = 2: {how}  "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"serve: decode disagrees with forward ({what})")
+        del full, dec, diff, outs, c
+        if what == "fp32":
+            del m
+    torch.cuda.empty_cache()
+
+    # (c) the nine decoder-only architectures, card against CPU.
+    t0 = time.perf_counter()
+    worst = _reduced_on_card(torch, np, dev, seed)
+    ok = all(w <= 1.0 for w in worst.values())
+    print(f"path 3l (c) {len(worst)} reduced architectures, card vs CPU "
+          f"(forward + 4 decode steps + caches; err / fp32 limit): "
+          f"{', '.join(f'{n} {w:.3f}' for n, w in worst.items())}, "
+          f"{time.perf_counter() - t0:.1f} s  {'ok' if ok else 'FAIL'}")
+    check(ok and len(worst) == 9,
+          "serve: a reduced architecture on the card disagrees with the CPU")
+
+    # (d) the sidecar over (a)'s generated tokens, on the card.
+    t0 = time.perf_counter()
+    flushes = []
+    with _sidecar_instrument(torch, flushes):
+        err, muts, rows = serve_lm.personalize(toks[:, SERVE_PROMPT:],
+                                               device=dev)
+    got, want = {}, {}
+    for f in flushes:
+        for key, into in (("got", got), ("want", want)):
+            for k, v in f[key].items():
+                into[k] = into.get(k, 0) + v
+    on_budget = all(f["got"] == f["want"] for f in flushes)
+    ms = np.asarray([f["ms"] for f in flushes])
+    print(f"path 3l (d) serve_lm sidecar over the generated tokens: max err "
+          f"vs exact windowed solve {err:.3e} (limit 1e-2), {rows} rows in "
+          f"{muts} mutations over {len(flushes)} store steps (widths "
+          f"{sorted({w for f in flushes for w in f['widths']})}); launches "
+          f"{got} against the budget {want}, every step on budget "
+          f"{on_budget}; step p50 {np.percentile(ms, 50):.3f} / p90 "
+          f"{np.percentile(ms, 90):.3f} ms (host clock, synced) on {card}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(err < 1e-2 and muts < rows,
+          "serve: the sidecar misses its own assertions")
+    check(on_budget and got.get("fused_chain", 0) == muts > 0
+          and set(got) == {"fused_chain"},
+          "serve: the sidecar's launches are off the flushes' budget")
+    del model, cache, c0
+    torch.cuda.empty_cache()
+    print(f"path 3l: {time.perf_counter() - t_start:.1f} s")
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2578,6 +2889,17 @@ def main(argv=None) -> int:
           f"{ {k: v for k, v in got.items() if v} }, "
           f"{time.perf_counter() - t0:.1f} s; path 3k (i)+(ii) "
           f"{time.perf_counter() - t3k:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 3l. the LM serving path (serve_phase): full-width h2o-danube-1.8b
+    # decode through launch.serve.generate (plain torch, no repo kernel),
+    # decode against forward, the nine reduced architectures on the card
+    # against the CPU, and serve_lm's sidecar over the generated tokens:
+    # its flushes' fused_chain launches (not its warmup's).
+    reset_counts()
+    got = serve_phase(torch, np, dev, args.seed, card)
+    add_path(got)
+    print(f"path serve: launches {got}")
     torch.cuda.empty_cache()
 
     # -- kernel vs plain at the main paths' shapes (not counted) --------------

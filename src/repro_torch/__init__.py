@@ -6,5 +6,7 @@ caller passes CPU tensors. ``CholFactor.update`` / ``downdate`` go
 through ``core.api`` and ``core.backends`` to hand-written CUDA kernels in
 ``kernels/csrc/``: the fused chain (the dense main path), the paper's
 per-panel cascade (``pallas``, ``pallas_gemm``) and the block-tridiagonal
-chain of a structured factor (``blocktridiag``).
+chain of a structured factor (``blocktridiag``). The LM zoo (``configs``,
+``data``, ``models``) and its serving driver (``launch.serve``) are plain
+torch.
 """

@@ -8,7 +8,11 @@ same state. A block-tridiagonal factor's state is its ``(diag, off)`` block
 stacks (``BlockTriDiagStorage``), one factor or a fleet: pass the pair as
 ``data``, or use ``storage_from_numpy`` / ``storage_to_numpy``. An optimizer's state
 (``cholesky_precond``, ``adamw``, ``sgd``) crosses with
-``optimizer_state_from_numpy`` / ``optimizer_state_to_numpy``. A factor
+``optimizer_state_from_numpy`` / ``optimizer_state_to_numpy``. An LM's
+parameters cross with ``params_from_numpy`` / ``params_to_numpy`` (the JAX
+package's ``split_params(init_model(...))[0]`` tree, its ``layers`` axis
+stacked), and its decode cache with ``cache_from_numpy`` /
+``cache_to_numpy``. A factor
 of the ``sharded`` backend takes a ``DeviceMesh`` whose dim names are the
 JAX mesh's axis names: its columns are sharded over ``axis`` on the way in
 and gathered whole on the way out (on every rank). Nothing of the JAX
@@ -202,3 +206,99 @@ def optimizer_state_to_numpy(state):
         out["factors"] = unflatten(shape, [
             fac(sub) for sub in flatten_up_to(shape, state["factors"])])
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and decode caches.
+# ---------------------------------------------------------------------------
+
+
+def params_from_numpy(values, cfg, *, device=None):
+    """The port's model (``models.transformer.LM``) holding the JAX
+    package's parameter values: ``values`` is its ``split_params(...)[0]``
+    tree with every leaf as a numpy array, the layers stacked on a leading
+    axis. The tree's keys and every leaf's shape must be the model's; a
+    leaf's dtype becomes the parameter's (fp32 values widened from bf16
+    come back exact). ``device`` defaults to CUDA."""
+    from repro_torch.core.api import default_device
+    from repro_torch.models.transformer import LM
+
+    dev = default_device(device)
+    model = LM(cfg, device=dev)
+
+    def load(node, tree, index, path):
+        names = set(node.axes) | set(node._modules)
+        if set(tree) != names:
+            raise ValueError(f"{path or 'params'}: keys {sorted(tree)} are "
+                             f"not the model's {sorted(names)}")
+        for name in node.axes:
+            arr = np.asarray(tree[name])
+            if index is not None:
+                arr = arr[index]
+            dst = getattr(node, name)
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{path}/{name}: shape {arr.shape}, the "
+                                 f"model's {tuple(dst.shape)}")
+            with torch.no_grad():
+                dst.copy_(_to_tensor(arr, dev))
+        for name, m in node._modules.items():
+            load(m, tree[name], index, f"{path}/{name}")
+
+    names = set(model._modules)
+    if set(values) != names:
+        raise ValueError(f"params: keys {sorted(values)} are not the "
+                         f"model's {sorted(names)}")
+    for name, m in model._modules.items():
+        if name == "layers":
+            for i, lp in enumerate(m):
+                load(lp, values["layers"], i, f"layers[{i}]")
+        else:
+            load(m, values[name], None, name)
+    return model
+
+
+def params_to_numpy(model) -> dict:
+    """The model's parameters as the JAX package's values tree of numpy
+    arrays: the layers stacked on a leading axis, bf16 widened to fp32
+    (exactly)."""
+    from repro_torch.models.transformer import lm_values
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _array_to_numpy(t)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    tree = lm_values(model)
+    out = {}
+    for name, sub in tree.items():
+        out[name] = (stack([conv(t) for t in sub]) if name == "layers"
+                     else conv(sub))
+    return out
+
+
+def cache_from_numpy(cache, *, device=None) -> dict:
+    """A decode cache from the JAX package's (a dict of numpy arrays,
+    ``pos`` a scalar): tensors on ``device`` (default CUDA), ``pos`` a 0-d
+    int32 tensor."""
+    from repro_torch.core.api import default_device
+
+    dev = default_device(device)
+    out = {}
+    for name, arr in cache.items():
+        if name == "pos":
+            out[name] = torch.tensor(int(np.asarray(arr)), dtype=torch.int32,
+                                     device=dev)
+        else:
+            out[name] = _to_tensor(arr, dev)
+    return out
+
+
+def cache_to_numpy(cache) -> dict:
+    """The inverse of ``cache_from_numpy`` (bf16 widened to fp32)."""
+    return {name: (np.asarray(int(t), np.int32) if name == "pos"
+                   else _array_to_numpy(t)) for name, t in cache.items()}

@@ -1,0 +1,269 @@
+"""Parameter substrate + elementary layers, PyTorch port.
+
+Parameters live in ``Params`` modules (``nn.Module``s) that mirror the JAX
+package's parameter tree: a ``Params`` holds its leaves and child
+``Params`` under the JAX tree's keys, and ``p["wq"]`` reads a leaf or a
+child as ``p["wq"]`` reads the JAX dict. Every leaf is created through
+``Params.param(...)``, which records its *logical axis names* and its init
+rule beside it; ``axes_tree`` gives the axes as the JAX package's
+``split`` does. The weight layout is the JAX package's: ``linear`` is
+``x @ w`` with ``w`` of shape ``(d_in, d_out)``.
+
+The math follows the JAX package op for op: norms in fp32 internals cast
+back to the input's dtype, half-split rotary embeddings, tanh soft-capping,
+tanh-approximate GELU. JAX promotes mixed dtypes in a matmul silently and
+torch refuses them: ``mm`` writes the promotion out.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.core.precision import as_dtype
+
+
+def default_scale(shape) -> float:
+    """The JAX package's default init scale: 1/sqrt(shape[0]) for a matrix
+    or a stack (so 1/sqrt(H) for an ``(H, Dh, D)`` output projection),
+    1/sqrt(shape[-1]) for a vector; computed in fp32 as there."""
+    fan = shape[0] if len(shape) > 1 else shape[-1]
+    return float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(fan))))
+
+
+class Params(nn.Module):
+    """A node of the parameter tree: leaves with logical axes, and
+    children. ``p[name]`` is the leaf or the child of that name."""
+
+    def __init__(self):
+        super().__init__()
+        self.axes: Dict[str, Tuple[Optional[str], ...]] = {}
+        self._inits: Dict[str, Tuple[str, Optional[float]]] = {}
+
+    def param(self, name, shape, axes, *, dtype, device=None,
+              scale: Optional[float] = None, init: str = "normal"):
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} vs shape {shape}")
+        t = torch.empty(tuple(shape), dtype=as_dtype(dtype), device=device)
+        self.register_parameter(name, nn.Parameter(t))
+        self.axes[name] = tuple(axes)
+        self._inits[name] = (init, scale)
+        return self
+
+    def child(self, name, node: "Params") -> "Params":
+        self.add_module(name, node)
+        return node
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def __contains__(self, name) -> bool:
+        return name in self.axes or name in self._modules
+
+    @torch.no_grad()
+    def reset(self, generator: torch.Generator) -> None:
+        """Draw every leaf of this node (not its children) by its rule:
+        zeros, ones, or fp32 normals times its scale, cast to its dtype."""
+        for name, (init, scale) in self._inits.items():
+            p = getattr(self, name)
+            if init == "zeros":
+                p.zero_()
+            elif init == "ones":
+                p.fill_(1)
+            else:
+                s = default_scale(p.shape) if scale is None else scale
+                x = torch.randn(p.shape, generator=generator,
+                                dtype=torch.float32, device=p.device)
+                p.copy_(x * s)
+
+
+def init_tree(module: nn.Module, generator: torch.Generator) -> None:
+    """``reset`` every ``Params`` node below ``module``, in module order."""
+    for m in module.modules():
+        if isinstance(m, Params):
+            m.reset(generator)
+
+
+def values_tree(node: Params) -> dict:
+    """The node's leaves and children as a nested dict of tensors."""
+    out = {name: getattr(node, name) for name in node.axes}
+    for name, m in node._modules.items():
+        out[name] = values_tree(m)
+    return out
+
+
+def axes_tree(node: Params) -> dict:
+    """The node's logical axes as a nested dict of tuples."""
+    out = dict(node.axes)
+    for name, m in node._modules.items():
+        out[name] = axes_tree(m)
+    return out
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul``."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def cat(xs, dim: int) -> torch.Tensor:
+    """``jnp.concatenate``: the pieces in their promoted dtype."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return torch.cat([x.to(dt) for x in xs], dim=dim)
+
+
+def einsum(eq: str, *xs: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """``jnp.einsum`` of the operands in their promoted dtype;
+    ``out_dtype=torch.float32`` stands for ``preferred_element_type=f32``
+    (operands widened to fp32: a product of bf16 values is exact there)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    if out_dtype is not None:
+        dt = torch.promote_types(dt, out_dtype)
+    return torch.einsum(eq, *(x.to(dt) for x in xs))
+
+
+# ---------------------------------------------------------------------------
+# Norms (fp32 internals regardless of activation dtype).
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d, dtype, device=None):
+    return Params().param("scale", (d,), ("embed",), dtype=dtype,
+                          device=device, init="ones")
+
+
+def rmsnorm(p, x, *, eps=1e-6):
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].float())).to(x.dtype)
+
+
+def layernorm_init(d, dtype, device=None):
+    p = Params().param("scale", (d,), ("embed",), dtype=dtype, device=device,
+                       init="ones")
+    return p.param("bias", (d,), ("embed",), dtype=dtype, device=device,
+                   init="zeros")
+
+
+def layernorm(p, x, *, eps=1e-6):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def norm_init(kind, d, dtype, device=None):
+    return (rmsnorm_init(d, dtype, device) if kind == "rmsnorm"
+            else layernorm_init(d, dtype, device))
+
+
+def apply_norm(kind, p, x):
+    return rmsnorm(p, x) if kind == "rmsnorm" else layernorm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# Linear / embedding.
+# ---------------------------------------------------------------------------
+
+
+def linear_init(d_in, d_out, axes, dtype, *, scale=None, device=None):
+    return Params().param("w", (d_in, d_out), axes, dtype=dtype,
+                          device=device, scale=scale)
+
+
+def linear(p, x):
+    return mm(x, p["w"])
+
+
+def embed_init(vocab, d, dtype, device=None):
+    return Params().param("tokens", (vocab, d), ("vocab", "embed"),
+                          dtype=dtype, device=device, scale=1.0)
+
+
+def embed_lookup(p, tokens):
+    return p["tokens"][tokens.long()]
+
+
+# ---------------------------------------------------------------------------
+# Activations / gated MLP.
+# ---------------------------------------------------------------------------
+
+
+def _act(name, x):
+    if name in ("swiglu", "silu"):
+        return F.silu(x)
+    if name in ("geglu", "gelu"):
+        return F.gelu(x, approximate="tanh")   # jax.nn.gelu's default
+    raise ValueError(name)
+
+
+def mlp_init(d, d_ff, dtype, *, activation="swiglu", gated=True,
+             device=None):
+    p = Params()
+    p.param("wi", (d, d_ff), ("embed", "mlp"), dtype=dtype, device=device)
+    p.param("wo", (d_ff, d), ("mlp", "embed"), dtype=dtype, device=device)
+    if gated:
+        p.param("wg", (d, d_ff), ("embed", "mlp"), dtype=dtype,
+                device=device)
+    return p
+
+
+def mlp(p, x, *, activation="swiglu"):
+    if "wg" in p:
+        h = _act(activation, mm(x, p["wg"])) * mm(x, p["wi"])
+    else:
+        h = _act(activation, mm(x, p["wi"]))
+    return mm(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding.
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, *, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq). The
+    frequencies are fp32, as the JAX package's; nothing crosses from the
+    host to the device."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    f32 = torch.float32
+    log_theta = float(torch.log(torch.tensor(theta, dtype=f32)))
+    freqs = torch.exp(
+        -log_theta * torch.arange(0, half, dtype=f32, device=x.device) / half
+    )
+    angles = positions[..., None].to(f32) * freqs  # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x, cap: Optional[float]):
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def sqrt_scale(d: int, dtype) -> float:
+    """``jnp.asarray(jnp.sqrt(d), dtype)`` as a Python float: sqrt in fp32,
+    rounded to ``dtype`` (a Python scalar multiplies on the device with no
+    copy from the host)."""
+    return float(torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+                 .to(dtype))
+
+
+def inv_sqrt(d: int) -> float:
+    """``1 / jnp.sqrt(jnp.asarray(d, f32))``, computed in fp32, as a Python
+    float (exact)."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))

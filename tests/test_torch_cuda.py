@@ -14,6 +14,9 @@ The first test builds the kernel from ``src/repro_torch/kernels/csrc``.
 """
 from __future__ import annotations
 
+import contextlib
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -1648,3 +1651,128 @@ def test_kalman_smoother_runs_on_the_card(cuda):
     assert abs(card["rmse"] - cpu["rmse"]) <= 5e-4
     assert abs(card["pull"] - cpu["pull"]) <= 5e-3
     assert got == {"btd_chain": 6}, got
+
+
+# -- the LM serving path and serve_lm on the card -----------------------------
+
+
+def test_serve_cli_full_width_on_the_card(cuda, capsys):
+    """``python -m repro_torch.launch.serve --arch h2o-danube-1.8b --full``
+    (its ``main``) on the card: batch 8, prompt 32, 64 sampled tokens. The
+    model code is plain torch: it launches no kernel of the repo."""
+    from repro_torch.launch import serve
+
+    before = kernel_launches()
+    tps = serve.main(["--arch", "h2o-danube-1.8b", "--full"])
+    torch.cuda.synchronize()
+    got = launches_since(before)
+    out = capsys.readouterr().out
+    with capsys.disabled():
+        print(f"serve --full on the card: {out.strip()}; launches {got}")
+    assert tps > 0 and "generated (8, 96) tokens" in out
+    assert got == {}, got
+
+
+@contextlib.contextmanager
+def _marking(marks):
+    """Within: each ``FactorStore.warmup`` that returns appends the launch
+    counts at that point to ``marks``."""
+    from repro_torch.stream import FactorStore
+
+    warmup = FactorStore.warmup
+
+    def marked(store, **kw):
+        out = warmup(store, **kw)
+        marks.append(kernel_launches())
+        return out
+
+    with mock.patch.object(FactorStore, "warmup", marked):
+        yield
+
+
+@pytest.mark.parametrize("background", [False, True])
+def test_serve_lm_runs_on_the_card(cuda, background, capsys):
+    """``serve_lm`` (its ``main``, ``--stats``, and ``--background``) on
+    the card: the example's own assertions hold, and its sidecar's served
+    flushes launch one ``fused_chain`` a mutation (a sign block of width
+    <= 8: ceil(8/32) = 1), nothing else. The background worker's
+    mutations follow its wake-ups, so two runs may count differently."""
+    from repro_torch.examples import serve_lm
+
+    argv = ["--stats"] + (["--background"] if background else [])
+    before = kernel_launches()
+    tps, err, muts, rows = serve_lm.main(argv)
+    torch.cuda.synchronize()
+    total = launches_since(before)
+    out = capsys.readouterr().out
+    marks = []
+    toks, _ = serve_lm.tokens_for(device="cuda")
+    with _marking(marks):
+        err2, muts2, rows2 = serve_lm.personalize(
+            toks[:, 32:], background=background, device="cuda")
+    torch.cuda.synchronize()
+    served = launches_since(marks[0])
+    with capsys.disabled():
+        print(f"serve_lm {' '.join(argv)} on the card: launches {total} "
+              f"(warmup included); served {served} for {muts2} mutations")
+    assert tps > 0 and err < 1e-2 and err2 < 1e-2
+    assert muts < rows == rows2 == 512 and muts2 < rows2
+    assert background or muts2 == muts
+    assert "retraces=0" in out
+    assert served == {"fused_chain": muts2}, served
+    assert set(total) == {"fused_chain"}, total
+
+
+def _serve_lm_rank(d):
+    """One rank of ``serve_lm --sharded`` on the card: its results and its
+    sidecar's launches after warmup, into ``d``."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.examples import serve_lm
+
+    marks = []
+    with _marking(marks):
+        tps, err, muts, rows = serve_lm.run(sharded=True, device="cuda")
+    torch.cuda.synchronize()
+    with open(f"{d}/rank{dist.get_rank()}.json", "w") as f:
+        json.dump({"err": err, "muts": muts, "rows": rows,
+                   "launches": launches_since(marks[0])}, f)
+
+
+def test_serve_lm_sharded_on_four_ranks_sharing_the_card(cuda, tmp_path,
+                                                         capfd):
+    """``serve_lm --sharded`` on four gloo ranks sharing the card: the ranks
+    hold equal token streams (the example checks), every rank's sidecar
+    gives the same mutations and rows, and each launches per mutation (one sign block, n = 32 over panels of 8) the
+    sharded driver's 4 ``diag_block`` and 1 ``panel_apply_sharded``. The
+    CLI exits cleanly; with ``--background`` every rank's service refuses
+    the worker."""
+    import json
+
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.compat import run_gloo_ranks
+
+    _build.build_all()  # once here, not in each rank
+    run_gloo_ranks(4, _serve_lm_rank, (str(tmp_path),), timeout=600)
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(4)]
+    with capfd.disabled():
+        print("serve_lm --sharded launches on the card, by rank: "
+              f"{[r['launches'] for r in ranks]}, mutations "
+              f"{[r['muts'] for r in ranks]}")
+    per_block = SH.kernel_launches(32, 8, strategy="fused", k=8)
+    assert per_block == {"diag_block": 4, "panel_apply_sharded": 1}
+    for r in ranks:
+        assert (r["muts"], r["rows"]) == (ranks[0]["muts"], 512)
+        assert r["err"] < 1e-2 and r["muts"] < r["rows"]
+        assert r["launches"] == {k: v * r["muts"]
+                                 for k, v in per_block.items()}
+    serve_lm.main(["--sharded"])
+    capfd.readouterr()
+    with pytest.raises(RuntimeError, match="gloo ranks exited"):
+        serve_lm.main(["--sharded", "--background"])
+    assert ("start_background() on a sharded store of 4 ranks"
+            in capfd.readouterr().err)
