@@ -10,16 +10,33 @@ each package reads the other's checkpoints. One directory per step
 * ``DONE``       — commit marker written last (readers ignore directories
   without it; a crash mid-write leaves no valid-looking junk).
 
-A dict of named tensors takes the pytree's place. Leaves are torch tensors
-(any device; gathered to the host), numpy arrays, or a
-``BlockTriDiagStorage``, whose two block stacks are stored under the leaf
-names the JAX package gives them (``<name>/0`` for ``diag``, ``<name>/1``
-for ``off``). Dtype names are numpy's (``float32``, ``float64``,
-``bfloat16``): bfloat16 leaves are written and read by viewing their bytes
-as a torch tensor, so neither side needs ``ml_dtypes`` here.
+A tree of dicts (and lists) takes the pytree's place, under the leaf
+names the JAX package's pytree paths give:
+
+* torch tensors (any device; gathered to the host, a ``DTensor`` gathered
+  whole on every rank and written by rank 0) and numpy arrays;
+* a ``BlockTriDiagStorage``: its two block stacks, ``<name>/0`` (diag) and
+  ``<name>/1`` (off);
+* a ``CholFactor``: its ``data`` as its one child, ``<name>/0`` (the JAX
+  package's pytree flattening of the class);
+* a Python int (an optimizer's host step): a 0-d int32 array, as the JAX
+  package stores its step;
+* None: no leaf, as in JAX (an optimizer state's leaves that hold no
+  factor).
+
+So a training state ``{"values": models.values_tree(model), "opt":
+optimizer state}`` is written under the names the JAX package writes for
+its own (``values/layers/attn/wq``, ``opt/m/...``,
+``opt/factors/.../c/0``, ``opt/step``), and each package restores the
+other's. ``restore`` copies each leaf into the tensor its template holds
+there, so restoring into a model's values tree loads the model. Dtype
+names are numpy's (``float32``, ``float64``, ``bfloat16``): bfloat16
+leaves are written and read by viewing their bytes as a torch tensor, so
+neither side needs ``ml_dtypes`` here.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -70,24 +87,49 @@ def _is_storage(x) -> bool:
     return isinstance(x, BlockTriDiagStorage) or x is BlockTriDiagStorage
 
 
-def _flatten_with_names(tree) -> List[Tuple[str, Any]]:
-    """(name, leaf) pairs in the JAX package's order and spelling: dict
-    keys sorted, ``a/b`` paths, a ``BlockTriDiagStorage`` as its two
-    children ``0`` (diag) and ``1`` (off)."""
+def _children(tree):
+    """The (key, child) pairs of an inner node in the JAX package's order,
+    or None for a leaf."""
+    from repro_torch.core.factor import CholFactor
+
     if isinstance(tree, dict):
-        out = []
-        for key in sorted(tree):
-            for name, leaf in _flatten_with_names(tree[key]):
-                out.append((f"{key}/{name}" if name else str(key), leaf))
-        return out
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), t) for i, t in enumerate(tree)]
     if _is_storage(tree):
         return [("0", getattr(tree, "diag", None)),
                 ("1", getattr(tree, "off", None))]
-    return [("", tree)]
+    if isinstance(tree, CholFactor):
+        return [("0", tree.data)]
+    return None
+
+
+def _flatten_with_names(tree) -> List[Tuple[str, Any]]:
+    """(name, leaf) pairs in the JAX package's order and spelling: dict
+    keys sorted, ``a/b`` paths, the nodes of the module docstring; None
+    has no leaf."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [("", tree)]
+    out = []
+    for key, sub in kids:
+        for name, leaf in _flatten_with_names(sub):
+            out.append((f"{key}/{name}" if name else key, leaf))
+    return out
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
 
 
 def _leaf_bytes(leaf) -> Tuple[np.ndarray, List[int], str]:
     """A leaf as (flat uint8 bytes, shape, dtype name)."""
+    if isinstance(leaf, int) and not isinstance(leaf, bool):
+        leaf = np.asarray(leaf, np.int32)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().contiguous().cpu()
         raw = t.reshape(-1).view(torch.uint8).numpy()
@@ -108,12 +150,23 @@ def save(ckpt_dir, step: int, tree: Dict[str, Any], *, keep: int = 3,
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
+    leaves = _flatten_with_names(tree)
+    sharded = any(_is_dtensor(leaf) for _, leaf in leaves)
+    if sharded:
+        # Every rank takes part in the gathers; rank 0 writes.
+        import torch.distributed as dist
+
+        leaves = [(n, x.full_tensor() if _is_dtensor(x) else x)
+                  for n, x in leaves]
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return final
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     arrays = {}
     meta = {"step": step, "leaves": [], "extra": extra or {}}
-    for i, (name, leaf) in enumerate(_flatten_with_names(tree)):
+    for i, (name, leaf) in enumerate(leaves):
         key = f"a{i}"
         arrays[key], shape, dt = _leaf_bytes(leaf)
         meta["leaves"].append(
@@ -125,6 +178,10 @@ def save(ckpt_dir, step: int, tree: Dict[str, Any], *, keep: int = 3,
         shutil.rmtree(final)
     os.replace(tmp, final)
     _prune(ckpt_dir, keep)
+    if sharded:
+        import torch.distributed as dist
+
+        dist.barrier()
     return final
 
 
@@ -161,36 +218,92 @@ def read_meta(ckpt_dir, step: int) -> dict:
 
 
 def _leaf_tensor(raw: np.ndarray, shape, name: str, device) -> torch.Tensor:
+    """A stored leaf's bytes as a tensor of its dtype and shape."""
     t = torch.from_numpy(np.array(raw, dtype=np.uint8))
     return t.view(torch_dtype_for(name)).reshape(shape).to(device)
 
 
-def _unflatten(like, by_name: Dict[str, torch.Tensor], prefix: str = ""):
+def _join(prefix: str, key) -> str:
+    return f"{prefix}/{key}" if prefix else str(key)
+
+
+def _copy_into(like: torch.Tensor, t: torch.Tensor, name: str):
+    """The stored leaf ``t`` copied into the template's tensor ``like``
+    (a ``DTensor`` keeps its mesh and placements)."""
+    if tuple(like.shape) != tuple(t.shape) or like.dtype != t.dtype:
+        raise ValueError(
+            f"checkpoint leaf {name!r} is {t.dtype} {tuple(t.shape)}, the "
+            f"template's tensor {like.dtype} {tuple(like.shape)}")
+    if _is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+
+        t = distribute_tensor(t.to(like.device_mesh.device_type),
+                              like.device_mesh, list(like.placements))
+    with torch.no_grad():
+        like.copy_(t)
+    return like
+
+
+def _unflatten(like, by_name: Dict[str, torch.Tensor], device,
+               prefix: str = ""):
+    from repro_torch.core.factor import CholFactor
+
+    if like is None:
+        return None
     if isinstance(like, dict):
-        return {key: _unflatten(
-            like[key], by_name, f"{prefix}/{key}" if prefix else str(key))
-            for key in like}
+        return {key: _unflatten(like[key], by_name, device,
+                                _join(prefix, key)) for key in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(t, by_name, device, _join(prefix, i))
+                          for i, t in enumerate(like))
     if _is_storage(like):
-        return BlockTriDiagStorage(by_name[f"{prefix}/0"],
-                                   by_name[f"{prefix}/1"])
-    return by_name[prefix]
+        return BlockTriDiagStorage(
+            _unflatten(getattr(like, "diag", torch.Tensor), by_name, device,
+                       f"{prefix}/0"),
+            _unflatten(getattr(like, "off", torch.Tensor), by_name, device,
+                       f"{prefix}/1"))
+    if isinstance(like, CholFactor):
+        return dataclasses.replace(
+            like, data=_unflatten(like.data, by_name, device,
+                                  _join(prefix, 0)))
+    if isinstance(like, int) and not isinstance(like, bool):
+        return int(by_name[prefix])
+    if isinstance(like, torch.Tensor):
+        return _copy_into(like, by_name[prefix], prefix)
+    return by_name[prefix].to(device)
 
 
-def restore(ckpt_dir, step: int, like: Dict[str, Any], *,
-            device=None) -> Dict[str, Any]:
-    """Restore into the structure of ``like`` (values ignored): tensors on
-    ``device`` (default the CPU), a ``BlockTriDiagStorage`` where ``like``
-    holds one (or the class itself)."""
+def restore(ckpt_dir, step: int, like: Any, *, device=None,
+            shardings=None) -> Any:
+    """Restore into the structure of ``like``.
+
+    Where ``like`` holds a tensor (a ``DTensor`` too), the stored leaf is
+    copied into it, which must have the leaf's shape and dtype, and that
+    tensor is returned: restoring into ``models.values_tree(model)`` loads
+    the model in place. Any other leaf of ``like`` (a numpy array, the
+    class ``torch.Tensor``) stands for a new tensor on ``device`` (default
+    the CPU). A ``BlockTriDiagStorage`` (or the class itself) and a
+    ``CholFactor`` (with ``like``'s metadata) come back where ``like``
+    holds one, a Python int where ``like`` holds an int. With
+    ``shardings`` (a tree of ``sharding.rules.NamedSharding`` over
+    ``like``'s dicts) each leaf is then placed on its sharding's mesh: the
+    elastic re-mesh happens here.
+    """
     meta = read_meta(ckpt_dir, step)
     path = Path(ckpt_dir) / f"step_{step:08d}"
-    dev = torch.device("cpu") if device is None else torch.device(device)
     with np.load(path / "arrays.npz") as npz:
         by_name = {leaf["name"]: _leaf_tensor(npz[leaf["key"]],
                                               leaf["shape"], leaf["dtype"],
-                                              dev)
+                                              "cpu")
                    for leaf in meta["leaves"]}
     names = [name for name, _ in _flatten_with_names(like)]
     missing = [n for n in names if n not in by_name]
     if missing:
         raise ValueError(f"checkpoint missing leaves: {missing[:5]}...")
-    return _unflatten(like, by_name)
+    out = _unflatten(like, by_name,
+                     torch.device("cpu") if device is None else device)
+    if shardings is not None:
+        from repro_torch.runtime.fault_tolerance import elastic_reshard
+
+        out = elastic_reshard(out, shardings)
+    return out

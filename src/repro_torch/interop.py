@@ -8,11 +8,13 @@ same state. A block-tridiagonal factor's state is its ``(diag, off)`` block
 stacks (``BlockTriDiagStorage``), one factor or a fleet: pass the pair as
 ``data``, or use ``storage_from_numpy`` / ``storage_to_numpy``. An optimizer's state
 (``cholesky_precond``, ``adamw``, ``sgd``) crosses with
-``optimizer_state_from_numpy`` / ``optimizer_state_to_numpy``. An LM's
-parameters cross with ``params_from_numpy`` / ``params_to_numpy`` (the JAX
-package's ``split_params(init_model(...))[0]`` tree, its ``layers`` axis
-stacked), and its decode cache with ``cache_from_numpy`` /
-``cache_to_numpy``. A factor
+``optimizer_state_from_numpy`` / ``optimizer_state_to_numpy``. A model's
+parameters, decoder-only or encoder-decoder, cross with
+``params_from_numpy`` / ``params_to_numpy`` (the JAX package's
+``split_params(init_model(...))[0]`` tree, each stack of layers on a
+leading axis), its decode cache with ``cache_from_numpy`` /
+``cache_to_numpy``, and a training state ``{"values", "opt"}`` with
+``train_state_from_numpy`` / ``train_state_to_numpy``. A factor
 of the ``sharded`` backend takes a ``DeviceMesh`` whose dim names are the
 JAX mesh's axis names: its columns are sharded over ``axis`` on the way in
 and gathered whole on the way out (on every rank). Nothing of the JAX
@@ -214,17 +216,19 @@ def optimizer_state_to_numpy(state):
 
 
 def params_from_numpy(values, cfg, *, device=None):
-    """The port's model (``models.transformer.LM``) holding the JAX
+    """The port's model (``models.transformer.LM``, or
+    ``models.encdec.EncDec`` for ``family == 'encdec'``) holding the JAX
     package's parameter values: ``values`` is its ``split_params(...)[0]``
-    tree with every leaf as a numpy array, the layers stacked on a leading
-    axis. The tree's keys and every leaf's shape must be the model's; a
-    leaf's dtype becomes the parameter's (fp32 values widened from bf16
-    come back exact). ``device`` defaults to CUDA."""
+    tree with every leaf as a numpy array, each stack of layers on a
+    leading axis. The tree's keys and every leaf's shape must be the
+    model's; a leaf's dtype becomes the parameter's (fp32 values widened
+    from bf16 come back exact). ``device`` defaults to CUDA."""
     from repro_torch.core.api import default_device
+    from repro_torch.models.encdec import EncDec
     from repro_torch.models.transformer import LM
 
     dev = default_device(device)
-    model = LM(cfg, device=dev)
+    model = (EncDec if cfg.family == "encdec" else LM)(cfg, device=dev)
 
     def load(node, tree, index, path):
         names = set(node.axes) | set(node._modules)
@@ -249,9 +253,9 @@ def params_from_numpy(values, cfg, *, device=None):
         raise ValueError(f"params: keys {sorted(values)} are not the "
                          f"model's {sorted(names)}")
     for name, m in model._modules.items():
-        if name == "layers":
+        if name in model.stacked:
             for i, lp in enumerate(m):
-                load(lp, values["layers"], i, f"layers[{i}]")
+                load(lp, values[name], i, f"{name}[{i}]")
         else:
             load(m, values[name], None, name)
     return model
@@ -259,26 +263,31 @@ def params_from_numpy(values, cfg, *, device=None):
 
 def params_to_numpy(model) -> dict:
     """The model's parameters as the JAX package's values tree of numpy
-    arrays: the layers stacked on a leading axis, bf16 widened to fp32
+    arrays: each stack of layers on a leading axis, bf16 widened to fp32
     (exactly)."""
-    from repro_torch.models.transformer import lm_values
+    from repro_torch.models.transformer import values
 
     def conv(t):
         if isinstance(t, dict):
             return {k: conv(v) for k, v in t.items()}
         return _array_to_numpy(t)
 
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
+    return conv(values(model))
 
-    tree = lm_values(model)
-    out = {}
-    for name, sub in tree.items():
-        out[name] = (stack([conv(t) for t in sub]) if name == "layers"
-                     else conv(sub))
-    return out
+
+def train_state_from_numpy(state, cfg, *, device=None) -> dict:
+    """A training state ``{"values": model, "opt": optimizer state}`` from
+    the JAX package's ``{"values", "opt"}`` as numpy (``values`` as
+    ``params_from_numpy`` takes it, ``opt`` as
+    ``optimizer_state_from_numpy`` does)."""
+    return {"values": params_from_numpy(state["values"], cfg, device=device),
+            "opt": optimizer_state_from_numpy(state["opt"], device=device)}
+
+
+def train_state_to_numpy(state) -> dict:
+    """The inverse of ``train_state_from_numpy``."""
+    return {"values": params_to_numpy(state["values"]),
+            "opt": optimizer_state_to_numpy(state["opt"])}
 
 
 def cache_from_numpy(cache, *, device=None) -> dict:

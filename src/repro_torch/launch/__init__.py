@@ -1,1 +1,3 @@
-"""Launch drivers of the PyTorch port: ``serve`` (batched decode)."""
+"""Launch drivers of the PyTorch port: ``serve`` (batched decode),
+``train`` (the training driver), ``steps`` (the step bodies and the cells'
+input specs) and ``mesh``."""

@@ -102,6 +102,51 @@ def axes_tree(node: Params) -> dict:
     return out
 
 
+def alias_stacked(nodes) -> dict:
+    """Re-home the leaves of equal-structured nodes (the layers of a
+    stack) in one tensor per leaf, stacked on a leading axis: node i's
+    leaf becomes a ``Parameter`` over row i of it (the same storage, each
+    row still its own autograd leaf). Returns the nested dict of the
+    stacked tensors, the layout of the JAX package's ``layers`` subtree:
+    an in-place change to a stacked tensor is a change to every layer's
+    parameter, and the layers' values read as that subtree with no copy."""
+    first = nodes[0]
+    out = {}
+    for name in first.axes:
+        rows = [getattr(n, name) for n in nodes]
+        stacked = torch.empty((len(rows),) + tuple(rows[0].shape),
+                              dtype=rows[0].dtype, device=rows[0].device)
+        for i, (n, row) in enumerate(zip(nodes, rows)):
+            with torch.no_grad():
+                stacked[i].copy_(row)
+            n._parameters[name] = nn.Parameter(stacked[i])
+        out[name] = stacked
+    for name in first._modules:
+        out[name] = alias_stacked([n._modules[name] for n in nodes])
+    return out
+
+
+def _ptr(t: torch.Tensor) -> int:
+    """The address of ``t``'s data (of its local shard for a DTensor)."""
+    return (t.to_local() if hasattr(t, "to_local") else t).data_ptr()
+
+
+def stacked_rows(nodes, stacked: dict) -> bool:
+    """True iff every leaf of every node still views its row of
+    ``stacked`` (``alias_stacked``'s layout; ``Module.to`` and the like
+    re-home parameters and break it)."""
+    first = nodes[0]
+    for name in first.axes:
+        st = stacked[name]
+        for i, n in enumerate(nodes):
+            p = getattr(n, name)
+            if (_ptr(p) != _ptr(st[i]) or p.shape != st[i].shape
+                    or p.dtype != st.dtype):
+                return False
+    return all(stacked_rows([n._modules[name] for n in nodes], stacked[name])
+               for name in first._modules)
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul``."""
     dt = torch.promote_types(a.dtype, b.dtype)

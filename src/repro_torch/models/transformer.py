@@ -3,9 +3,15 @@ mamba-hybrid / vlm families.
 
 The JAX package stacks the layers' parameters on a leading ``layers`` axis
 and scans them; here the layers are an ``nn.ModuleList`` and the list index
-is that axis (``lm_axes`` puts ``'layers'`` back in front of each leaf's
-logical axes, and ``interop.params_to_numpy`` stacks the values). Per-layer
-heterogeneity stays data, not structure:
+is that axis. Their parameters live in one stacked tensor per leaf
+(``layers.alias_stacked``), so ``values`` reads the JAX package's values
+tree with no copy and an optimizer's in-place update of a stacked leaf
+updates every layer (``lm_axes`` puts ``'layers'`` back in front of each
+leaf's logical axes). With ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``), and
+the loss (``chunked_xent``) projects the vocabulary a chunk of tokens at a
+time, each chunk checkpointed too. Per-layer heterogeneity stays data, not
+structure:
 
 * gemma2's local/global alternation reads a per-layer ``window`` value
   (``layer_windows``; 0 disables it);
@@ -22,6 +28,7 @@ import dataclasses
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -83,7 +90,9 @@ class LM(L.Params):
     """The decoder-only LM's parameters: ``embed``, ``layers`` (a
     ``ModuleList``, one ``Params`` a layer), ``final_norm``, and
     ``lm_head`` (untied) / ``shared`` (zamba2) where the config has them.
-    Built uninitialised (``torch.empty``); ``init_lm`` draws the values."""
+    The layers' parameters view rows of ``stacked['layers']``, one tensor
+    a leaf (``layers.alias_stacked``). Built uninitialised
+    (``torch.empty``); ``init_lm`` draws the values."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -101,6 +110,7 @@ class LM(L.Params):
                 device=device))
         if cfg.shared_attn_every:
             self.child("shared", _shared_block_init(cfg, dtype, device))
+        self.stacked = {"layers": L.alias_stacked(list(self.layers))}
 
 
 def init_lm(cfg, *, device=None, seed: int = 0) -> LM:
@@ -119,15 +129,49 @@ def init_lm(cfg, *, device=None, seed: int = 0) -> LM:
     return model
 
 
-def lm_values(model: LM) -> dict:
-    """The parameter tree as nested dicts, ``layers`` a list of layer
-    trees (the JAX tree's stacked axis unstacked)."""
+def values(model) -> dict:
+    """The JAX package's values tree of ``model`` (an ``LM`` or an
+    ``encdec.EncDec``): the same keys and leaf shapes, each stack of layers
+    a subtree of stacked tensors, every leaf the model's own storage (no
+    copy; the stacked leaves need no grad, the rest are the module's
+    parameters)."""
     out = {}
     for name, m in model._modules.items():
-        if name == "layers":
-            out[name] = [L.values_tree(lp) for lp in m]
+        if name in model.stacked:
+            if not L.stacked_rows(list(m), model.stacked[name]):
+                raise RuntimeError(
+                    f"{name}: the layers' parameters no longer view their "
+                    "stacked storage (re-homed by Module.to or the like)")
+            out[name] = model.stacked[name]
         else:
             out[name] = L.values_tree(m)
+    return out
+
+
+def stacked_leaves(model) -> list:
+    """``(path, leaf, sources)`` for every leaf of ``values(model)`` in the
+    JAX package's leaf order (keys sorted): ``sources`` is the list of the
+    module's parameters the leaf holds, one per layer for a stacked leaf,
+    else the leaf itself."""
+    tree = values(model)
+    out = []
+
+    def walk(t, path, nodes):
+        for key in sorted(t):
+            sub = t[key]
+            if isinstance(sub, dict):
+                walk(sub, path + (key,),
+                     None if nodes is None else [n[key] for n in nodes])
+            else:
+                out.append((path + (key,), sub,
+                            [sub] if nodes is None
+                            else [n[key] for n in nodes]))
+
+    for name in sorted(tree):
+        if name in model.stacked:
+            walk(tree[name], (name,), list(model._modules[name]))
+        else:
+            walk({name: tree[name]}, (), None)
     return out
 
 
@@ -198,6 +242,15 @@ def _apply_shared_block(shared, x, positions, cfg):
     x = x + L.mlp(shared["mlp"], L.apply_norm(cfg.norm, shared["ln2"], x),
                   activation=cfg.activation)
     return x
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``cfg.remat`` and autograd records: the backward recomputes the
+    call's activations instead of keeping them (``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _layer_fwd(lp, x, positions, cfg, window, collect_cache: bool):
@@ -271,8 +324,8 @@ def _forward_hybrid(model, cfg, x, positions, collect_cache):
         size = every if g < n_groups else tail
         caches = []
         for j in range(size):
-            x, (a, c) = _layer_fwd(model.layers[g * every + j], x, positions,
-                                   cfg, None, collect_cache)
+            x, (a, c) = remat(cfg, _layer_fwd, model.layers[g * every + j],
+                              x, positions, cfg, None, collect_cache)
             aux = _add_aux(aux, a)
             caches.append(c)
         (groups if g < n_groups else tail_caches).append(caches)
@@ -305,8 +358,8 @@ def forward_lm(model, cfg, tokens, *, embeds=None, collect_cache=False,
         aux = _zero_aux(x.device)
         caches = []
         for lp, window in zip(model.layers, layer_windows(cfg).tolist()):
-            x, (a, c) = _layer_fwd(lp, x, positions, cfg, window,
-                                   collect_cache)
+            x, (a, c) = remat(cfg, _layer_fwd, lp, x, positions, cfg,
+                              window, collect_cache)
             aux = _add_aux(aux, a)
             caches.append(c)
         caches = _stack(caches) if collect_cache else None
@@ -325,6 +378,55 @@ def project_logits(model, cfg, x):
     else:
         logits = L.mm(x, model["lm_head"]["w"])
     return L.softcap(logits.float(), cfg.logit_softcap)
+
+
+def _chunk_xent(model, cfg, xi, li):
+    """(sum of the chunk's log-likelihoods at its unmasked labels, count
+    of those labels): fp32, and int32 as ``jnp.sum`` of a mask gives."""
+    logp = torch.log_softmax(project_logits(model, cfg, xi), dim=-1)
+    ll = torch.gather(logp, -1, li.clamp(min=0).long()[..., None])[..., 0]
+    mask = li >= 0
+    return (torch.where(mask, ll, torch.zeros((), dtype=ll.dtype,
+                                              device=ll.device)).sum(),
+            mask.sum(dtype=torch.int32))
+
+
+def chunked_xent(model, cfg, x, labels):
+    """Next-token cross-entropy over sequence chunks of ``cfg.loss_chunk``
+    tokens (one chunk when it does not divide the sequence), so the
+    (tokens, vocab) logits never exist beyond one chunk: each chunk runs
+    under ``torch.utils.checkpoint``, which keeps its inputs and recomputes
+    its logits in the backward. Labels below 0 are masked; the sums are
+    fp32."""
+    B, S_, D = x.shape
+    c = min(cfg.loss_chunk, S_)
+    n_chunks = S_ // c if S_ % c == 0 else 1
+    if S_ % c != 0:
+        c = S_
+    xc = x.reshape(B, n_chunks, c, D).transpose(0, 1)   # (n, B, c, D)
+    lc = labels.reshape(B, n_chunks, c).transpose(0, 1)
+    s = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(n_chunks):
+        if torch.is_grad_enabled():
+            si, ni = checkpoint(_chunk_xent, model, cfg, xc[i], lc[i],
+                                use_reentrant=False)
+        else:
+            si, ni = _chunk_xent(model, cfg, xc[i], lc[i])
+        s = s - si
+        n = n + ni
+    return s / torch.clamp(n, min=1)
+
+
+def lm_loss(model, cfg, tokens, labels, *, embeds=None):
+    """Mean next-token cross-entropy (fp32, vocab-chunked) + aux losses.
+    Returns (total, metrics): metrics hold ``loss`` and the moe aux terms
+    (``load_balance``, ``router_z``; zeros for the other families)."""
+    x, aux = forward_lm(model, cfg, tokens, embeds=embeds,
+                        return_hidden=True)
+    loss = chunked_xent(model, cfg, x, labels)
+    total = loss + aux["load_balance"] + aux["router_z"]
+    return total, {"loss": loss, **aux}
 
 
 # ---------------------------------------------------------------------------

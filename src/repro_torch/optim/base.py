@@ -61,6 +61,19 @@ def unflatten(structure, leaves):
     return tree_map(lambda _: next(it), structure)
 
 
+def donated(donate: bool, olds, news):
+    """``news``, or with ``donate`` each written into its old tensor and
+    the olds returned: the JAX package's buffer donation (``jit``'s
+    ``donate_argnums``), which lets a step reuse its state's memory. The
+    caller gives up the state it passed; the values are the same."""
+    if not donate:
+        return tuple(news)
+    with torch.no_grad():
+        for old, new in zip(olds, news):
+            old.copy_(new)
+    return tuple(olds)
+
+
 def apply_updates(params, updates):
     return tree_map(lambda p, u: p if u is None else p + u.to(p.dtype),
                     params, updates)

@@ -38,9 +38,10 @@ from typing import Callable, Union
 import torch
 
 from repro_torch.core.factor import CholFactor
-from repro_torch.optim.adamw import _adam_moments, _bias_corrections, _lr_at
-from repro_torch.optim.base import (Optimizer, flatten_up_to, tree_leaves,
-                                    tree_map, unflatten)
+from repro_torch.optim.adamw import (_adam_direction, _adam_moments,
+                                     _bias_corrections, _decayed_step, _lr_at)
+from repro_torch.optim.base import (Optimizer, donated, flatten_up_to,
+                                    tree_leaves, tree_map, unflatten)
 
 
 def _precond_side(p_shape, max_precond_dim, rank, block_size):
@@ -55,6 +56,13 @@ def _precond_side(p_shape, max_precond_dim, rank, block_size):
     if d % b:
         return None
     return "left" if m <= n else "right"
+
+
+def _whole(x):
+    """A ``DTensor`` gathered whole on every rank (the factors are
+    replicated, as the JAX package's ``opt_state_specs`` places them); a
+    tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 def _seed(seed: int, step: int, index: int) -> int:
@@ -90,7 +98,8 @@ def cholesky_precond(
 ) -> Optimizer:
     """See module docstring. ``window > 0`` enables exact sliding-window
     statistics; it composes with ``beta`` by downdating the expiring sketch
-    scaled by ``beta**(window/2)``."""
+    scaled by ``beta**(window/2)``. ``update(..., donate=True)`` writes
+    the new moments into the state's tensors (``base.donated``)."""
 
     def init(params):
         def per_param(p):
@@ -109,13 +118,12 @@ def cholesky_precond(
                                             device=p.device)
             return state
 
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"step": 0, "m": tree_map(zeros, params),
                 "v": tree_map(zeros, params),
                 "factors": tree_map(per_param, params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, donate=False):
         step = state["step"] + 1
         lr_t = _lr_at(lr, step)
         bc1, bc2 = _bias_corrections(b1, b2, step)
@@ -123,14 +131,17 @@ def cholesky_precond(
         def upd(index, g, m, v, p, fac):
             g32 = g.float()
             m_new, v_new = _adam_moments(g32, m, v, b1, b2)
-            adam_dir = (m_new / bc1) / (torch.sqrt(v_new / bc2) + adam_eps)
             side = _precond_side(g32.shape, max_precond_dim, rank,
                                  block_size)
             if fac is None or side is None:
-                delta = -lr_t * (adam_dir + weight_decay * p.float())
-                return delta, m_new, v_new, fac
+                del g32  # the Adam path needs no more of it
+            adam_dir = _adam_direction(m_new, v_new, bc1, bc2, adam_eps)
+            m_new, v_new = donated(donate, (m, v), (m_new, v_new))
+            if fac is None or side is None:
+                return (_decayed_step(adam_dir, p, lr_t, weight_decay), m_new,
+                        v_new, fac)
 
-            gmat = g32 if side == "left" else g32.T  # (d, other)
+            gmat = _whole(g32 if side == "left" else g32.T)  # (d, other)
             d, other = gmat.shape
             b = min(block_size, d)
             v_sk = gmat @ sketch(other, rank, seed=seed, step=step,
@@ -158,8 +169,8 @@ def cholesky_precond(
             # Grafting: second-order direction, Adam step norm.
             direction = pdir * (torch.linalg.norm(adam_dir)
                                 / (torch.linalg.norm(pdir) + 1e-16))
-            delta = -lr_t * (direction + weight_decay * p.float())
-            return delta, m_new, v_new, fac_new
+            return (_decayed_step(direction, p, lr_t, weight_decay), m_new,
+                    v_new, fac_new)
 
         leaves = zip(tree_leaves(grads),
                      *(flatten_up_to(grads, t) for t in

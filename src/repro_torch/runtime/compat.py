@@ -1,6 +1,8 @@
-"""Mesh construction and local multi-rank runs, PyTorch port.
+"""Mesh construction, local multi-rank runs and feature detection,
+PyTorch port of ``repro.runtime.compat``.
 
-Port of the parts of ``repro.runtime.compat`` the sharded placement needs:
+The JAX package's policy holds (DESIGN.md §6): feature-detect, never
+version-parse; degrade to the old default; one choke point for meshes.
 
 * ``make_mesh_compat(shape, axes)``, the counterpart of
   ``jax.make_mesh``: a ``DeviceMesh`` of the given shape and dim names over
@@ -13,6 +15,13 @@ Port of the parts of ``repro.runtime.compat`` the sharded placement needs:
   process, the port starts ``n`` processes, each a rank of a ``gloo``
   process group that meets at a ``file://`` store in a fresh temporary
   directory (never a TCP port), and runs ``target(*args)`` on each.
+* ``ensure_host_devices(n)``: a process group of ``n`` ranks for this
+  process: where none exists and ``n == 1``, a one-rank group (``gloo``
+  over an in-memory store); ``n`` ranks in one process do not exist in
+  torch, so more raises (start them with ``run_gloo_ranks``).
+* ``HAS_AXIS_TYPE``, ``mesh_axis_types_kwargs`` and ``shard_map_norep``:
+  the names of JAX features, kept with their torch meaning in their
+  docstrings.
 """
 from __future__ import annotations
 
@@ -28,6 +37,61 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+#: Seconds a rank waits for the others to join and at each collective.
+PG_TIMEOUT_S = 120.0
+
+#: JAX's ``AxisType`` (explicit/auto sharding per mesh axis) has no torch
+#: counterpart: every ``DeviceMesh`` dim behaves as JAX's old implicit
+#: default (placements are explicit per tensor, nothing is propagated).
+HAS_AXIS_TYPE = False
+AXIS_TYPE_AUTO = None
+
+def mesh_axis_types_kwargs(n_axes: int) -> dict:
+    """kwargs marking ``n_axes`` mesh axes as Auto where supported: ``{}``
+    always, since ``init_device_mesh`` takes no axis types (see
+    ``HAS_AXIS_TYPE``)."""
+    del n_axes
+    return {}
+
+
+def shard_map_norep(f, *, mesh, in_specs, out_specs):
+    """``f`` run on each rank's local shards: torch's ``local_map``
+    (``in_specs`` / ``out_specs`` as placements), where this torch has it.
+    JAX's replication checker, which the name turns off, has no torch
+    counterpart. Raises ``NotImplementedError`` on a torch without
+    ``local_map``."""
+    try:
+        from torch.distributed.tensor.experimental import local_map
+    except ImportError:
+        raise NotImplementedError(
+            "this torch has no torch.distributed.tensor.experimental."
+            "local_map") from None
+    return local_map(f, out_placements=out_specs, in_placements=in_specs,
+                     device_mesh=mesh)
+
+
+def ensure_host_devices(n: int) -> bool:
+    """Make sure this process is a rank of a process group of ``n`` ranks
+    (the JAX function makes ``n`` host devices visible by a re-exec). With
+    no group and ``n == 1`` it starts a one-rank ``gloo`` group over an
+    in-memory store (no file, no port) and returns True (the caller may
+    ``destroy_process_group`` it); with a group of ``n`` ranks it
+    returns False; anything else raises (``run_gloo_ranks`` starts ``n``
+    ranks)."""
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if world != n:
+            raise RuntimeError(f"the process group has {world} ranks, not "
+                               f"{n}")
+        return False
+    if n != 1:
+        raise RuntimeError(
+            f"{n} ranks need {n} processes: start them with run_gloo_ranks "
+            "(or torch.distributed.init_process_group in each)")
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0, timeout=timedelta(seconds=PG_TIMEOUT_S))
+    return True
 
 
 def make_mesh_compat(shape: Sequence[int], axes: Sequence[str], *,
@@ -59,10 +123,6 @@ def make_mesh_compat(shape: Sequence[int], axes: Sequence[str], *,
                 "ranks")
         device_type = "cuda"
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
-
-
-#: Seconds a rank waits for the others to join and at each collective.
-PG_TIMEOUT_S = 120.0
 
 
 def _gloo_rank(rank: int, n: int, store: str, target, args) -> None:

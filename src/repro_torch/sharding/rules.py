@@ -1,0 +1,249 @@
+"""Logical-axis -> mesh-axis lowering (DP / FSDP / TP / EP policies),
+PyTorch port: the same rules, lowered to ``DTensor`` placements.
+
+Every parameter carries a tuple of logical axis names (models/layers.py).
+``logical_to_spec`` lowers one to the placements of a ``DeviceMesh``: one
+``Shard(dim)`` or ``Replicate()`` per mesh dim, the mesh dims in the
+mesh's order (so a tensor dim sharded over ``('pod', 'data')`` is split
+over pod first, as the JAX package's ``PartitionSpec`` splits it). A
+dimension whose size does not divide the mesh axes it is given is
+replicated instead, and the event recorded (the 24-head llama3.2 /
+56-head arctic exceptions).
+
+Policies:
+* TP   — 'heads', 'kv_heads', 'mlp', 'expert_mlp', 'vocab', 'heads_mlp'
+         shard over the model axis.
+* EP   — 'experts' shards over the model axis; when the expert count does
+         not divide (mixtral 8e), experts replicate and 'expert_mlp' still
+         shards (TP-within-expert).
+* FSDP — with ``cfg.fsdp``, the 'embed' axis of weight matrices shards
+         over the data axes.
+* DP   — batch shards over ('pod', 'data').
+
+A mesh is a ``DeviceMesh`` (its ``mesh_dim_names`` are the axes) or any
+object whose ``shape`` is a dict {axis: size} in mesh order (the tests'
+``FakeMesh``). ``partition_spec`` maps placements back to the JAX
+package's ``PartitionSpec`` entries, so that the two can be compared.
+
+``set_batch_axes``, ``constrain_dims`` and ``constrain_batch_dim`` are the
+JAX package's layout hints to XLA's sharding propagation inside the model
+code; torch has no such propagation to hint, so here they keep the
+ambient axes and return their input unchanged (the JAX package's functions
+do the same without a mesh in context).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+from torch.distributed.tensor import Replicate, Shard
+
+# logical axis -> role
+_TP_AXES = ("heads", "kv_heads", "mlp", "expert_mlp", "vocab", "heads_mlp")
+_EP_AXES = ("experts",)
+_FSDP_AXES = ("embed",)
+
+_BATCH_AXES: Tuple[str, ...] = ("data",)
+
+
+def set_batch_axes(axes: Tuple[str, ...]):
+    """Record the ambient batch axes (read by nothing in the port: see the
+    module docstring)."""
+    global _BATCH_AXES
+    _BATCH_AXES = tuple(axes)
+
+
+def constrain_dims(x, dim_axes):
+    """An XLA layout hint in the JAX package; the identity here."""
+    del dim_axes
+    return x
+
+
+def constrain_batch_dim(x, dim: int):
+    """An XLA layout hint in the JAX package (a no-op there without a mesh
+    in context); the identity here."""
+    del dim
+    return x
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} in mesh order, of a ``DeviceMesh`` or of a mesh
+    whose ``shape`` is already that dict."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+def _mesh_axes_size(mesh, names: Sequence[str]) -> int:
+    sizes = axis_sizes(mesh)
+    n = 1
+    for name in names:
+        n *= sizes[name]
+    return n
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in axis_sizes(mesh))
+
+
+def model_axes(mesh) -> Tuple[str, ...]:
+    return ("model",) if "model" in axis_sizes(mesh) else ()
+
+
+def _placements(dims, mesh) -> tuple:
+    """Placements (one per mesh dim) from ``dims``: each tensor dim's
+    tuple of mesh axes (empty for replicated)."""
+    shard_of = {}
+    for d, axes in enumerate(dims):
+        for a in axes:
+            shard_of[a] = d
+    return tuple(Shard(shard_of[a]) if a in shard_of else Replicate()
+                 for a in axis_sizes(mesh))
+
+
+def logical_to_spec(
+    axes: Tuple[Optional[str], ...],
+    shape: Tuple[int, ...],
+    mesh,
+    *,
+    fsdp: bool = False,
+    policy: str = "tp",
+    notes: Optional[list] = None,
+) -> tuple:
+    """Lower one parameter's logical axes to placements on ``mesh``.
+
+    policy='tp' (default): TP/EP over the model axis, optional FSDP over
+    the data axes. policy='dp': no TP — every device is a data shard and
+    params fully shard (ZeRO-3) over data+model.
+    """
+    tp = model_axes(mesh)
+    dp = data_axes(mesh)
+    if policy == "dp":
+        tp = ()
+        dp = data_axes(mesh) + model_axes(mesh)
+        fsdp = True
+    dims = []
+    used = set()
+    for ax, dim in zip(axes, shape):
+        assign: Tuple[str, ...] = ()
+        if ax in _TP_AXES or ax in _EP_AXES:
+            assign = tp
+        elif ax in _FSDP_AXES and fsdp:
+            assign = dp
+        if assign and any(a in used for a in assign):
+            assign = ()  # one mesh axis may shard only one tensor dim
+        if assign:
+            size = _mesh_axes_size(mesh, assign)
+            if dim % size != 0:
+                if notes is not None:
+                    notes.append((ax, dim, size))
+                assign = ()
+        dims.append(assign)
+        used.update(assign)
+    return _placements(dims, mesh)
+
+
+def partition_spec(placements, mesh, ndim: int) -> tuple:
+    """The JAX package's ``PartitionSpec`` entries of ``placements``: per
+    tensor dim None, an axis name, or a tuple of names (mesh order)."""
+    dims = [[] for _ in range(ndim)]
+    for name, pl in zip(axis_sizes(mesh), placements):
+        if isinstance(pl, Shard):
+            dims[pl.dim].append(name)
+    return tuple(None if not d else (d[0] if len(d) == 1 else tuple(d))
+                 for d in dims)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def _map2(fn, axes_tree, values_tree):
+    if _is_axes(axes_tree):
+        return fn(axes_tree, values_tree)
+    return {k: _map2(fn, axes_tree[k], values_tree[k]) for k in axes_tree}
+
+
+def param_specs(axes_tree, values_tree, mesh, *, fsdp=False, policy="tp"):
+    """Placements for a whole parameter tree (the JAX package's values
+    tree and its axes tree); returns (specs_tree, notes)."""
+    notes: list = []
+    specs = _map2(lambda a, v: logical_to_spec(
+        a, tuple(v.shape), mesh, fsdp=fsdp, policy=policy, notes=notes),
+        axes_tree, values_tree)
+    return specs, notes
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and the placements of one tensor on it (the JAX package's
+    ``NamedSharding``)."""
+    mesh: object
+    placements: tuple
+
+    def place(self, x):
+        """``x`` (a tensor, or a ``DTensor`` gathered whole first) as a
+        ``DTensor`` with these placements."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        return distribute_tensor(x.to(self.mesh.device_type), self.mesh,
+                                 list(self.placements))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def param_shardings(axes_tree, values_tree, mesh, *, fsdp=False):
+    specs, notes = param_specs(axes_tree, values_tree, mesh, fsdp=fsdp)
+    return _tree_map(lambda s: NamedSharding(mesh, s), specs), notes
+
+
+def batch_spec(mesh, ndim: int, *, batch_axis: int = 0) -> tuple:
+    """Shard the batch dimension over the data axes, rest replicated."""
+    dims = [()] * ndim
+    dims[batch_axis] = data_axes(mesh)
+    return _placements(dims, mesh)
+
+
+#: Cache array name -> (batch axis index, head axis index or None).
+_CACHE_DIMS = {
+    "k": (1, 3), "v": (1, 3), "xk": (1, 3), "xv": (1, 3),
+    "sk": (1, 3), "sv": (1, 3),
+    "shift_t": (1, None), "shift_c": (1, None),
+    "S": (1, 2), "h": (1, 2), "conv": (1, None),
+}
+
+
+def cache_specs(cache_tree, cfg, mesh):
+    """Decode-cache placements: batch over the data axes when divisible,
+    KV heads over the model axis; SSM states: heads over model. Replicate
+    otherwise."""
+    del cfg
+    tp = model_axes(mesh)
+    dp = data_axes(mesh)
+    dp_size = _mesh_axes_size(mesh, dp) if dp else 1
+    tp_size = _mesh_axes_size(mesh, tp) if tp else 1
+
+    def spec_for(name, leaf):
+        dims = [()] * leaf.ndim
+        if leaf.ndim and name in _CACHE_DIMS:
+            b_ax, h_ax = _CACHE_DIMS[name]
+            if dp and leaf.shape[b_ax] % dp_size == 0:
+                dims[b_ax] = dp
+            if h_ax is not None and tp and leaf.shape[h_ax] % tp_size == 0:
+                dims[h_ax] = tp
+        return _placements(dims, mesh)
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return spec_for(name, tree)
+
+    return walk(cache_tree, "")

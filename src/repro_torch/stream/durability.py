@@ -38,6 +38,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import CholFactor
@@ -402,7 +403,7 @@ def _restore_service(ckpt_dir, *, step, mesh, warm, device
     # names do not match a dense 'fleet' leaf).
     structure = s.get("structure", "dense")
     if structure == "dense":
-        template = {"fleet": None}
+        template = {"fleet": torch.Tensor}
     elif structure == "blocktridiag":
         template = {"fleet": BlockTriDiagStorage}
     else:

@@ -29,6 +29,7 @@ from repro_torch.kernels import cholupdate as K
 from repro_torch.kernels import fused as F
 from repro_torch.kernels import sharded as SH
 from repro_torch.kernels._launch import rank_groups
+from repro_torch.obs import metrics as obs_metrics
 
 pytestmark = pytest.mark.gpu
 
@@ -1700,6 +1701,9 @@ def test_serve_lm_runs_on_the_card(cuda, background, capsys):
     from repro_torch.examples import serve_lm
 
     argv = ["--stats"] + (["--background"] if background else [])
+    # the summary's counters are process-wide: drop what earlier tests in
+    # this process counted, so "retraces=0" speaks of this run alone
+    obs_metrics.REGISTRY.reset()
     before = kernel_launches()
     tps, err, muts, rows = serve_lm.main(argv)
     torch.cuda.synchronize()
@@ -1776,3 +1780,80 @@ def test_serve_lm_sharded_on_four_ranks_sharing_the_card(cuda, tmp_path,
         serve_lm.main(["--sharded", "--background"])
     assert ("start_background() on a sharded store of 4 ranks"
             in capfd.readouterr().err)
+
+
+# -- the training path and the encoder-decoder family on the card -------------
+
+
+def test_train_lm_runs_on_the_card(cuda, tmp_path, capsys):
+    """``examples/train_lm`` (reduced llama3.2-3b, ``cholesky_precond``,
+    its 200 steps) on the card: the loss falls, and each step takes one
+    ``fused_chain`` launch (``embed.tokens`` (512, 64) is the one eligible
+    leaf; the ln scales (4, 64) fall under 2·rank). A second call resumes
+    at step 200, trains nothing and launches nothing."""
+    from repro_torch.examples import train_lm
+
+    before = kernel_launches()
+    losses = train_lm.main(["--ckpt-dir", str(tmp_path)])
+    got = launches_since(before)
+    with capsys.disabled():
+        print(f"train_lm on the card: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; launches {got}")
+    assert len(losses) == 200 and losses[-1] < losses[0]
+    assert got == {"fused_chain": 200}
+    assert train_lm.main(["--ckpt-dir", str(tmp_path)]) == []
+    assert launches_since(before) == got
+
+
+def test_encdec_on_the_card_matches_the_cpu(cuda):
+    """seamless-m4t-medium at reduced(): ``loss_fn`` and its gradients,
+    ``encode`` / ``decode_train`` with the collected cache, and 4 decode
+    steps from it, on the card against the CPU, within fp32
+    tol_for(d_model * num_layers) * (1 + max |cpu|) (path 3l (c)'s rule)."""
+    from repro_torch import interop
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import _grads
+    from repro_torch.models import decode_step, encdec as ED, init_model
+    from repro_torch.optim.base import tree_leaves
+
+    cfg = ARCHS["seamless-m4t-medium"].reduced()
+    cpu = init_model(cfg, device="cpu", seed=3)
+    card = interop.params_from_numpy(interop.params_to_numpy(cpu), cfg,
+                                     device=cuda)
+    rng = np.random.default_rng(3)
+    batch = {"src_embeds": rng.normal(size=(2, 12, cfg.d_model)),
+             "tokens": rng.integers(0, cfg.vocab_size, (2, 8)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 8))}
+    batch = {k: torch.from_numpy(v.astype(np.float32 if v.dtype.kind == "f"
+                                          else np.int32))
+             for k, v in batch.items()}
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2))
+                           .astype(np.int32))
+    tol = 50 * float(torch.finfo(torch.float32).eps) * (
+        cfg.d_model * cfg.num_layers)
+
+    def run(model, dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        total, _, grads = _grads(cfg, model, b)
+        out = [total] + tree_leaves(grads)
+        with torch.no_grad():
+            enc = ED.encode(model, cfg, b["src_embeds"])
+            logits, (k, v, xk, xv) = ED.decode_train(
+                model, cfg, enc, b["tokens"], collect_cache=True)
+            out += [enc, logits, k, v, xk, xv]
+            cache = ED.init_encdec_cache(cfg, 2, 12, 12, torch.float32,
+                                         device=dev)
+            cache["k"][:, :, :8], cache["v"][:, :, :8] = k, v
+            cache["xk"], cache["xv"] = xk, xv
+            cache["pos"] = cache["pos"] + 8
+            for t in range(4):
+                lg, cache = decode_step(model, cfg, cache, nxt[t].to(dev))
+                out += [lg, cache["k"], cache["v"]]
+        return out
+
+    worst = 0.0
+    for ref, got in zip(run(cpu, "cpu"), run(card, cuda)):
+        assert got.device.type == "cuda"
+        err = float((got.cpu().float() - ref.float()).abs().max())
+        worst = max(worst, err / (tol * (1 + float(ref.abs().max()))))
+    assert worst <= 1.0, worst

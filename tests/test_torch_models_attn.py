@@ -251,11 +251,15 @@ def test_moe_top_k_breaks_ties_by_the_lower_index():
 
 
 def test_encdec_is_refused():
+    """The serve driver refuses the encoder-decoder family, as the JAX
+    package's does (the models themselves take it: test_torch_encdec.py)."""
+    from repro_torch.launch import serve
+
     cfg = ARCHS["seamless-m4t-medium"].reduced()
-    with pytest.raises(NotImplementedError, match="11b"):
-        PM.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="11b"):
-        PM.init_cache(cfg, 2, 8, device="cpu")
+    model = PM.init_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        serve.generate(cfg, model, torch.zeros((2, 4), dtype=torch.int32),
+                       gen=1, cache_len=8)
 
 
 def test_bf16_params_with_fp32_cache_within_twice_jax_error():

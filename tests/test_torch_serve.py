@@ -37,6 +37,7 @@ from repro_torch import interop
 from repro_torch.data import DataConfig, SyntheticTokens, frontend_stub_embeds
 from repro_torch.examples import serve_lm
 from repro_torch.launch import serve
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.stream import FactorStore
 from tests.strategies import tol_for
 from tests.test_torch_examples import jax_example
@@ -195,6 +196,9 @@ def test_personalize_sharded_one_rank_matches_jax(jax_sidecar, one_rank):
 
 
 def test_serve_lm_run_on_the_cpu(capsys):
+    # the summary's counters are process-wide: drop what earlier tests in
+    # this process counted, so "retraces=0" speaks of this run alone
+    obs_metrics.REGISTRY.reset()
     tps, err, muts, rows = serve_lm.run(stats=True, device="cpu")
     out = capsys.readouterr().out
     assert tps > 0 and err < 1e-2 and muts < rows == 512

@@ -144,7 +144,7 @@ def test_checkpoint_leaves_and_names_match_jax(tmp_path):
                       .read_text())
     assert [leaf["name"] for leaf in meta["leaves"]] == [
         "fleet/0", "fleet/1", "w"]
-    back = tckpt.restore(tmp_path / "t", 7, {"w": None,
+    back = tckpt.restore(tmp_path / "t", 7, {"w": torch.Tensor,
                                              "fleet": BlockTriDiagStorage})
     assert torch.equal(back["fleet"].diag, d) and torch.equal(back["w"],
                                                               tree["w"])
@@ -159,10 +159,10 @@ def test_checkpoint_leaves_and_names_match_jax(tmp_path):
     assert tckpt.all_steps(tmp_path / "j") == jckpt.all_steps(
         tmp_path / "j") == [5]
     assert tckpt.latest_step(tmp_path / "j") == 5
-    got = tckpt.restore(tmp_path / "j", 5, {"a": None})["a"]
+    got = tckpt.restore(tmp_path / "j", 5, {"a": torch.Tensor})["a"]
     assert got.dtype == torch.float64 and got.tolist() == [0, 1, 2, 3]
     with pytest.raises(ValueError, match="missing"):
-        tckpt.restore(tmp_path / "j", 5, {"b": None})
+        tckpt.restore(tmp_path / "j", 5, {"b": torch.Tensor})
     with pytest.raises(FileNotFoundError):
         tckpt.read_meta(tmp_path / "j", 2)
     assert tckpt.torch_dtype_for("bfloat16") == torch.bfloat16
