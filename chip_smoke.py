@@ -58,6 +58,16 @@ user calls, and holds every kernel against its plain torch version:
   free memory checked before it; ``examples/train_lm`` at ``reduced()``
   (200 steps, one launch a step) and its resume; the encoder-decoder
   family at ``reduced()`` on the card against the CPU.
+* the roofline and the dry run (path 3n): one more path 3m step under the
+  per-device op counter (``roofline.opcount``, memory tracked) against the
+  same cell traced on the meta device (equal dot FLOPs, its three
+  ``fused_chain`` launches), its roofline terms beside path 3m's step
+  time; and ``python -m repro_torch.launch.dryrun`` on the fake 16x16
+  world of 256 ranks for full-size llama3.2-3b ``train_4k
+  --optimizer cholesky_precond`` and ``decode_32k``, traced on the host's
+  CPU in subprocesses started after every timed phase before them (beside
+  path 3m's untimed checks) and read before the kernels are timed, each
+  record printed.
 
 Builds every kernel from the sources in ``src/repro_torch/kernels/csrc``,
 checks the launches each path takes (counts set to 0 just before a path
@@ -71,6 +81,7 @@ Usage: python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -2176,10 +2187,157 @@ def _encdec_on_card(torch, np, dev, seed):
     return worst, len(refs)
 
 
+# -- the roofline and the dry run (path 3n) -----------------------------------
+#
+# (a) One more step of path 3m's full-width llama3.2-3b cholesky_precond
+# training, before its model and state are freed, under the op counter
+# (roofline.opcount, memory tracked), beside the same cell traced on the
+# meta device at one rank (launch.dryrun.trace_cell): the dot FLOPs must be
+# equal, the step must take its 3 fused_chain launches, and the roofline
+# terms (roofline.analysis.analyze) stand beside path 3m's measured p50.
+# (b) The dry run itself (python -m repro_torch.launch.dryrun) on the
+# single-pod fake world of 256 ranks for two full-size cells, in
+# subprocesses started right after (a): they trace on the host's CPU
+# beside path 3m's untimed checks ((b) and (c)), and path 3n waits for
+# their records before the kernel phases that time anything.
+
+#: Path 3m's first and last losses at --seed 0 (PR 22's smoke): path 3n's
+#: repairs to the model code must leave them as they were.
+TRAIN_LM_LOSSES_SEED0 = (489.9023, 404.2239)
+#: The dry-run cells of path 3n (b): the paper-technique cell the JAX
+#: dry run names, and a decode cell with its cache placed on the mesh.
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "cholesky_precond"),
+                ("llama3.2-3b", "decode_32k", "adamw"))
+#: Seconds path 3n waits at most for (b)'s subprocesses to finish.
+DRYRUN_WAIT_S = 240
+
+
+def dryrun_in_background(work_dir):
+    """Start path 3n (b): one ``python -m repro_torch.launch.dryrun``
+    process a cell of ``DRYRUN_CELLS``, one intra-op thread each, output
+    in ``work_dir``. Returns the list of (cell, process, log path, out
+    path, start time)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape, opt in DRYRUN_CELLS:
+        log = os.path.join(work_dir, f"dryrun_{shape}.log")
+        out = os.path.join(work_dir, f"dryrun_{shape}.jsonl")
+        with open(log, "w") as f:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--optimizer", opt, "--out", out],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+        runs.append(((arch, shape, opt), p, log, out, time.perf_counter()))
+    return runs
+
+
+def dryrun_phase(runs):
+    """Path 3n (b): wait for the dry-run processes (at most
+    ``DRYRUN_WAIT_S``), print each record, check each exited 0 with a
+    record of the JAX keys; stops any process still running."""
+    check(len(runs) == len(DRYRUN_CELLS), "path 3n (b): the dry run never "
+          "started")
+    t0 = time.perf_counter()
+    for (arch, shape, opt), p, log, out, started in runs:
+        done_before = p.poll() is not None
+        try:
+            p.wait(timeout=max(1.0, DRYRUN_WAIT_S
+                               - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        took = time.perf_counter() - started
+        recs = []
+        if os.path.exists(out):
+            recs = [json.loads(x) for x in open(out).read().splitlines()]
+        tail = open(log).read().splitlines()[-3:]
+        when = ("had ended when path 3n (b) began waiting" if done_before
+                else f"ended {took:.1f} s after its start")
+        trace = f"trace {recs[0]['compile_s']} s" if recs and \
+            "compile_s" in recs[0] else "no record"
+        print(f"path 3n (b) dryrun {arch} x {shape} --optimizer {opt} on the "
+              f"fake 16x16 world: rc {p.returncode} ({when}; {trace}); "
+              f"{tail[-1] if tail else ''}")
+        for rec in recs:
+            print(f"  record: {json.dumps(rec)}")
+        check(p.returncode == 0 and len(recs) == 1
+              and "error" not in recs[0] and recs[0]["flops_per_device"] > 0,
+              f"path 3n (b): the dry run of {arch} x {shape} failed "
+              f"({tail})")
+    print(f"path 3n (b): waited {time.perf_counter() - t0:.1f} s")
+
+
+def roofline_phase(torch, cfg, step, model, state, batch, p50_ms,
+                   read_counts):
+    """Path 3n (a) (see the comment above). Returns its seconds."""
+    from repro_torch import optim
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.roofline import opcount
+
+    t0 = time.perf_counter()
+    cell = ShapeCell("train_lm", TRAIN_LM_SEQ, TRAIN_LM_BATCH, "train")
+    gc.collect()
+    torch.cuda.synchronize()
+    before = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with opcount.OpCounter(track_memory=True) as cnt:
+        step(model, state, batch)
+        torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    after = read_counts()
+    launches = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    t_card = time.perf_counter() - t0
+    # The same cell on the meta device, one rank: the optimizer as path
+    # 3m's (rank 8, block 64), the accumulation-free step.
+    one = types.SimpleNamespace(shape={"data": 1, "model": 1})
+    tr = DR.trace_cell(cfg, cell, one, grad_accum=1,
+                       opt=optim.cholesky_precond(3e-4, rank=8,
+                                                  block_size=64))
+    meta = tr["counted"]
+    roof = RA.analyze(cnt, cfg, cell, 1,
+                      params_local_bytes=tr["params_local_bytes"],
+                      opt_local_bytes=tr["opt_local_bytes"],
+                      memory=tr["memory"])
+    print(f"path 3n (a) roofline of one more path 3m step "
+          f"({cfg.name} full width, batch {TRAIN_LM_BATCH} seq "
+          f"{TRAIN_LM_SEQ}, cholesky_precond rank 8 block 64, one rank): "
+          f"dot FLOPs counted on the card {cnt.flops:.6e} "
+          f"({cnt.flops_by_op}), on the meta device {meta.flops:.6e} "
+          f"(trace {tr['seconds']:.1f} s); model_flops "
+          f"{roof.model_flops:.6e}, useful_ratio {roof.useful_ratio:.4f}; "
+          f"terms compute {roof.compute_s * 1e3:.3f} ms, memory "
+          f"{roof.memory_s * 1e3:.3f} ms (analytic {roof.bytes_accessed:.4e}"
+          f" B), collective {roof.collective_s * 1e3:.3f} ms -> "
+          f"{roof.bottleneck}-bound, beside path 3m's measured step p50 "
+          f"{p50_ms:.3f} ms ({100 * roof.compute_s * 1e3 / p50_ms:.2f} % of "
+          f"it is the compute term); tracked peak of the step's new storages "
+          f"{cnt.peak_bytes / 1e9:.3f} GB (meta trace "
+          f"{meta.peak_bytes / 1e9:.3f} GB) beside "
+          f"torch.cuda.max_memory_allocated {card_peak / 1e9:.3f} GB above "
+          f"the step's start; memory_analysis {roof.per_device_memory}; "
+          f"launches in the counted step {launches}; card step under the "
+          f"counter {t_card:.1f} s")
+    check(cnt.flops == meta.flops and cnt.flops > 0,
+          "path 3n (a): the card's counted FLOPs differ from the meta "
+          "device's")
+    check(launches == {"fused_chain": TRAIN_LM_LAUNCHES},
+          f"path 3n (a): the counted step took {launches}, not "
+          f"{TRAIN_LM_LAUNCHES} fused_chain launches")
+    check(cnt.collectives == [] and meta.collectives == [],
+          "path 3n (a): a one-rank step counted a collective")
+    return time.perf_counter() - t0
+
+
 def train_lm_phase(torch, np, dev, seed, card, work_dir, read_counts,
-                   reset_counts):
+                   reset_counts, after_timed):
     """Path 3m. Returns the fused_chain launches of its counted runs ((a)'s
-    steps and (b)'s), by kernel."""
+    steps and (b)'s), by kernel. ``after_timed()`` is called once its
+    timed steps and path 3n (a) are done."""
     from repro_torch import optim
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.data import DataConfig, SyntheticTokens
@@ -2279,6 +2437,15 @@ def train_lm_phase(torch, np, dev, seed, card, work_dir, read_counts,
           "launches")
     check(len(pre_leaves) == TRAIN_LM_LAUNCHES,
           "train_lm: not the three preconditioned leaves")
+    if seed == 0:
+        check((round(losses[0], 4), round(losses[-1], 4))
+              == TRAIN_LM_LOSSES_SEED0,
+              f"train_lm: the losses moved from {TRAIN_LM_LOSSES_SEED0}")
+    # Path 3n (a), on this model, state and batch before they go.
+    t3n = roofline_phase(torch, cfg, step, model, state,
+                         data.batch_at(TRAIN_LM_STEPS + 1), p50, read_counts)
+    print(f"path 3n (a): {t3n:.1f} s")
+    after_timed()
     del model, state, step, metrics, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2378,6 +2545,11 @@ def main(argv=None) -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all()
+    # Path 3n (b) starts inside path 3m, after its timed steps.
+    dry_dir = tempfile.mkdtemp(prefix="smoke_dryrun_")
+    dry_runs = []
+    atexit.register(lambda: [r[1].kill() for r in dry_runs
+                             if r[1].poll() is None])
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -3322,11 +3494,17 @@ def main(argv=None) -> int:
     check(free / 1e9 >= TRAIN_LM_NEED_GB,
           "path 3m: too little free memory for the full-width step")
     with tempfile.TemporaryDirectory(prefix="smoke_train_") as tdir:
-        got = train_lm_phase(torch, np, dev, args.seed, card, tdir,
-                             read_counts, reset_counts)
+        got = train_lm_phase(
+            torch, np, dev, args.seed, card, tdir, read_counts, reset_counts,
+            lambda: dry_runs.extend(dryrun_in_background(dry_dir)))
     add_path(got)
     print(f"path train_lm: launches {got}")
     torch.cuda.empty_cache()
+
+    # 3n (b). the dry run's records, traced since path 3n (a) ended
+    # inside path 3m; nothing timed runs until they are in.
+    dryrun_phase(dry_runs)
+    shutil.rmtree(dry_dir, ignore_errors=True)
 
     # -- kernel vs plain at the main paths' shapes (not counted) --------------
     # The fused chain: the downdate first, so that Lp, vt are the update's

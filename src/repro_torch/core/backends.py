@@ -238,6 +238,11 @@ def dispatch(L, V, *, sigma, method, panel, interpret, precision=None,
             structure=structure, n=n, panel=panel, k=V.shape[-1],
             storage_dtype=storage_dt, nblocks=getattr(L, "nblocks", 0),
             block=getattr(L, "block", 0)))
+    if structure == "dense" and L.device.type == "meta":
+        # A meta factor has no values to update: its update is a shape
+        # function (the dry run's optimizer state), as a torch op's meta
+        # kernel is.
+        return torch.empty_like(L)
     return get(name)(L, V, sigma=sigma, panel=panel, interpret=interpret,
                      precision=precision, **opts)
 

@@ -1,4 +1,5 @@
-"""Cholesky-factor utilities: solves, logdet, feasibility (upper convention).
+"""Cholesky-factor utilities: factor construction, solves, logdet,
+feasibility (upper convention).
 
 Port of ``repro.core.solve``. Every function takes one ``(n, n)`` factor or
 a ``(B, n, n)`` fleet: torch's linear algebra batches over leading axes,
@@ -7,6 +8,11 @@ which is what ``vmap`` did in the JAX package.
 from __future__ import annotations
 
 import torch
+
+
+def chol_factor(A):
+    """Upper factor L with A = L^T L (torch's lower factor, transposed)."""
+    return torch.linalg.cholesky(A).mT
 
 
 def solve_triangular(L, b, *, trans: bool):
@@ -31,6 +37,11 @@ def chol_solve(L, b):
     """Solve ``A x = b`` given the upper factor (two triangular solves)."""
     y = solve_triangular(L, b, trans=True)
     return solve_triangular(L, y, trans=False)
+
+
+def chol_inverse_multiply(L, X):
+    """Compute A^{-1} X for a matrix right-hand side."""
+    return chol_solve(L, X)
 
 
 def chol_logdet(L):

@@ -5,7 +5,16 @@ importing this module touches no process group. The JAX package's
 production meshes are TPU v5e pods: 16×16 (``data``, ``model``) and
 2×16×16 (``pod``, ``data``, ``model``). Here a mesh is a ``DeviceMesh``
 over the ranks of the process group, so the same shapes need 256 (or
-512) ranks, and raise in a smaller world.
+512) ranks, and raise in a world of another size. The dry run builds them
+in one process as rank 0 of a fake world of that size
+(``runtime.compat.init_fake_world``).
+
+On H100s the shapes keep their names and sizes (the sharding rules,
+``dryrun._local_bytes`` and ``analysis.analytic_memory_bytes`` read
+them): 256 cards are 32 DGX nodes of 8, and the 16-wide ``model`` axis
+(the inner one, consecutive ranks) spans two 8-card NVLink nodes, so its
+collectives cross InfiniBand (``analysis.LINK_BW``); ``data`` (and
+``pod``) run between nodes.
 """
 from __future__ import annotations
 

@@ -57,7 +57,7 @@ def _grads(cfg, model, batch):
 
 
 def make_train_step(cfg: ModelConfig, opt: optim.Optimizer, *, clip_norm=1.0,
-                    grad_accum: int = 1, mesh=None):
+                    grad_accum: int = 1, mesh=None, policy: str = "tp"):
     """One optimizer step, ``step(model, opt_state, batch) -> (model,
     opt_state, metrics)``: the model is updated in place, and the optimizer
     writes its new moments into the state it is given (``donate=True``,
@@ -68,18 +68,20 @@ def make_train_step(cfg: ModelConfig, opt: optim.Optimizer, *, clip_norm=1.0,
 
     ``mesh``: the mesh of several ranks the model's parameters are placed
     on (``launch.train.build``); each batch is then placed by
-    ``batch_specs``, and the step runs under ``implicit_replication`` (the
-    plain tensors the model code makes, such as positions, count as
-    replicated)."""
+    ``batch_specs`` (under ``policy``), and the step runs under
+    ``implicit_replication`` (the plain tensors the model code makes, such
+    as positions, count as replicated). A batch on the meta device (the
+    dry run's stand-ins) is placed where it is: it has nothing to copy."""
     if mesh is None:
         return _train_step(cfg, opt, clip_norm, grad_accum, lambda b: b)
     from torch.distributed.tensor import DTensor, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
 
     def place(batch):
-        specs = batch_specs(batch, mesh)
-        return {k: distribute_tensor(x.to(mesh.device_type), mesh,
-                                     list(specs[k]))
+        specs = batch_specs(batch, mesh, policy=policy)
+        return {k: distribute_tensor(
+                    x if x.is_meta else x.to(mesh.device_type), mesh,
+                    list(specs[k]))
                 for k, x in batch.items()}
 
     inner = _train_step(cfg, opt, clip_norm, grad_accum, place)
@@ -195,13 +197,14 @@ def _structure(tree):
     return None
 
 
-def param_shapes_and_axes(cfg: ModelConfig):
+def param_shapes_and_axes(cfg: ModelConfig, model=None):
     """(values tree of meta tensors, logical axes tree) without allocation.
 
-    Shapes come from the full config built on the meta device; axes from
-    the reduced config's model (identical tree structure, checked), as the
-    JAX package takes them."""
-    values = T.values(_meta_model(cfg))
+    Shapes come from the full config built on the meta device (or from
+    ``model``, such a model already built); axes from the reduced config's
+    model (identical tree structure, checked), as the JAX package takes
+    them."""
+    values = T.values(_meta_model(cfg) if model is None else model)
     _, axes = split_params(_meta_model(cfg.reduced()))
     s1, s2 = _structure(values), _structure(axes)
     assert s1 == s2, f"axes tree mismatch: {s1} vs {s2}"

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import rules
 
 NEG_INF = -1e30
 
@@ -69,6 +70,13 @@ def flash_attention(
     Offsets give global positions (cross-chunk prefill, right-aligned
     decode).
     """
+    # On a mesh the blocks' gradients come back as strided shards of the
+    # sequence, which the projections' backward cannot merge with the
+    # batch: gather them there; and a head_dim sharded over a mesh axis
+    # would make every block's scores a partial sum to all-reduce: gather
+    # it once here (plain tensors untouched).
+    q, k, v = (rules.gather_grad_dims(rules.gather_dims(t, (3,)), (1,))
+               for t in (q, k, v))
     B, Sq, H, Dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -82,10 +90,11 @@ def flash_attention(
     scale = L.inv_sqrt(Dh)
     window_val = _window_value(window)
 
-    qg = q.reshape(B, nq, q_chunk, KV, G, Dh).permute(1, 0, 3, 4, 2, 5)
+    qg = rules.reshape(q, (B, nq, q_chunk, KV, G, Dh)).permute(
+        1, 0, 3, 4, 2, 5)
     # qg: (nq, B, KV, G, Cq, Dh)
-    kc = k.reshape(B, nk, kv_chunk, KV, Dh).permute(1, 0, 3, 2, 4)
-    vc = v.reshape(B, nk, kv_chunk, KV, Dh).permute(1, 0, 3, 2, 4)
+    kc = rules.reshape(k, (B, nk, kv_chunk, KV, Dh)).permute(1, 0, 3, 2, 4)
+    vc = rules.reshape(v, (B, nk, kv_chunk, KV, Dh)).permute(1, 0, 3, 2, 4)
     # kc, vc: (nk, B, KV, Ckv, Dh)
 
     outs = []
@@ -122,6 +131,13 @@ def flash_attention(
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.stack(outs)  # (nq, B, KV, G, Cq, Dh) -> (B, Sq, H, Dh)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, KV * G, Dh)
+    # On a mesh DTensor may shard a block's query rows over a free mesh
+    # axis; put back together, the sequence is then a strided shard that
+    # no later view can merge with the batch: gather it. The gradient
+    # comes back sharded on the heads (the output projection's placement),
+    # which the reshape's backward cannot split into (KV, G) groups: gather
+    # those too. Plain tensors pass untouched.
+    out = rules.gather_grad_dims(rules.gather_dims(out, (1,)), (1, 2))
     return out.to(q.dtype)
 
 
@@ -180,14 +196,14 @@ def decode_attn(p, x1, cache_k, cache_v, pos, attn_cfg, *, window=None,
         # modulo, as jnp.mod); the caller writes this step's K/V at slot
         # pos % W after the call.
         slot_pos = pos - torch.remainder(pos - slot, S_slots)
-        valid = (slot_pos >= 0) & (slot_pos != pos)
+        valid = (slot_pos >= 0) & ~(slot_pos == pos)  # 2.11: no DTensor ne
     else:
         valid = slot < pos
         window_val = _window_value(window)
         if window_val > 0:
             valid &= slot > (pos - window_val)
 
-    qg = q.reshape(B, KV, G, Dh)
+    qg = rules.reshape(q, (B, KV, G, Dh))
     scale = L.inv_sqrt(Dh)
     s = L.einsum("bkgd,bskd->bkgs", qg, cache_k, out_dtype=f32) * scale
     s_self = L.einsum("bkgd,bkd->bkg", qg, k1.reshape(B, KV, Dh),

@@ -19,6 +19,7 @@ import torch.nn as nn
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _stack, chunked_xent, remat
+from repro_torch.sharding import rules
 
 
 def _gated(cfg):
@@ -241,7 +242,7 @@ def encdec_decode_step(model, cfg, cache, tokens):
         h = L.apply_norm(cfg.norm, lp["ln_x"], x)
         q = L.einsum("bd,dhk->bhk", h, lp["cross_attn"]["wq"])
         q = L.rope(q[:, None], pos_arr, theta=a.rope_theta)[:, 0]
-        qg = q.reshape(B, KV, G, a.head_dim)
+        qg = rules.reshape(q, (B, KV, G, a.head_dim))
         s = L.einsum("bkgd,bskd->bkgs", qg, xk,
                      out_dtype=torch.float32) * scale
         w = torch.softmax(s, dim=-1)

@@ -170,7 +170,89 @@ def einsum(eq: str, *xs: torch.Tensor, out_dtype=None) -> torch.Tensor:
         dt = torch.promote_types(dt, x.dtype)
     if out_dtype is not None:
         dt = torch.promote_types(dt, out_dtype)
-    return torch.einsum(eq, *(x.to(dt) for x in xs))
+    xs = tuple(x.to(dt) for x in xs)
+    if any(type(x).__name__ == "DTensor" for x in xs):
+        return _dtensor_einsum(eq, *xs)
+    return torch.einsum(eq, *xs)
+
+
+def _expand_ellipsis(eq, xs):
+    """``eq`` with each ``...`` spelled out in capital letters, one a dim,
+    aligned to the right as torch broadcasts them."""
+    ins, out = eq.replace(" ", "").split("->")
+    terms = ins.split(",")
+    n = max((x.ndim - len(t) + 3 for t, x in zip(terms, xs) if "..." in t),
+            default=0)
+    caps = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"[:n]
+    terms = [t.replace("...", caps[n - (x.ndim - len(t) + 3):])
+             for t, x in zip(terms, xs)]
+    return terms, out.replace("...", caps)
+
+
+def einsum_gathers(eq, *xs):
+    """Per operand of a two-operand ``einsum(eq, *xs)``, the dims a
+    ``DTensor`` operand gathers first. torch runs it as one batched matmul,
+    each operand permuted and reshaped into (batch, free, contracted)
+    groups of dims; a shard on a dim that this merges behind another of its
+    group, or a strided shard, cannot be viewed in place. A group's letters
+    run in the output's order, the contracted ones in label order (capitals
+    first), as torch permutes them, letters of size 1 left out; a plain
+    shard on a group's first letter stays (``rules.reshape_gathers`` is the
+    same rule for a plain reshape)."""
+    from repro_torch.sharding import rules
+
+    terms, out = _expand_ellipsis(eq, xs)
+    if len(terms) != 2:
+        return [set() for _ in xs]
+    size = {}
+    for t, x in zip(terms, xs):
+        for c, n in zip(t, x.shape):
+            size[c] = max(size.get(c, 1), n)
+    order = out + "".join(sorted({c for t in terms for c in t} - set(out)))
+    order = "".join(c for c in order if size.get(c, 1) > 1)
+    common = set(terms[0]) & set(terms[1])
+    gathers = []
+    for term, other, x in ((terms[0], terms[1], xs[0]),
+                           (terms[1], terms[0], xs[1])):
+        g = set()
+        if type(x).__name__ == "DTensor":
+            groups = ([c for c in order if c in common and c in out],
+                      [c for c in order if c in term and c not in other
+                       and c in out],
+                      [c for c in order if c in common and c not in out])
+            first = {grp[0] for grp in groups if grp}
+            for pl in x.placements:
+                if rules._shards(pl):
+                    d = pl.dim % x.ndim
+                    if term[d] not in first or type(pl).__name__ != "Shard":
+                        g.add(d)
+        gathers.append(g)
+    return gathers
+
+
+def _dtensor_einsum(eq, *xs):
+    """``torch.einsum`` of ``DTensor``s with explicit placements. A
+    projection ``...d,dhk->...hk`` (its product's merged (h, k) columns
+    sharded across a head: 8 KV heads of 128 over a 16-wide axis) runs as a
+    matmul and a placed reshape; any other equation first gathers each
+    operand's ``einsum_gathers`` dims, and its gradient the same dims on
+    the way back. What ``DTensor`` then cannot place raises."""
+    from repro_torch.sharding import rules
+
+    ins, out = eq.split("->")
+    terms = ins.split(",")
+    if len(terms) == 2:
+        a, b = terms
+        if len(b) == 3 and b[0] == a[-1] and out == a[:-1] + b[1:]:
+            x, w = xs
+            # The weight's gradient comes back with the same columns
+            # sharded, which the reshape's backward cannot split: gather.
+            y = torch.matmul(x, rules.gather_grad_dims(
+                w.reshape(w.shape[0], -1), (1,)))
+            return rules.reshape(y, tuple(x.shape[:-1]) + tuple(w.shape[1:]))
+    return torch.einsum(eq, *(
+        rules.gather_grad_dims(rules.gather_dims(x, g), g)
+        for x, g in zip(xs, einsum_gathers(eq, *xs))))
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +317,20 @@ def embed_init(vocab, d, dtype, device=None):
 
 
 def embed_lookup(p, tokens):
+    """Rows ``tokens`` of the table. A ``DTensor`` table (on a mesh) takes
+    ``F.embedding``, which ``DTensor`` places over a sharded vocabulary and
+    whose backward it can place (the indexing's backward, ``index_put``,
+    has a broken rule in some torch versions); a plain table keeps the
+    indexing."""
+    if type(p["tokens"]).__name__ == "DTensor":
+        from repro_torch.sharding import rules
+
+        # The rows of a sharded vocabulary come back as a masked partial
+        # sum, which later adds cannot take: reduce it here; and reduce the
+        # gradient's partial sums before it reaches that reduction's
+        # backward (no torch redistributes a sum into a masked sum).
+        y = rules.reduce_partial(F.embedding(tokens.long(), p["tokens"]))
+        return rules.gather_grad_dims(y, (), reduce=True)
     return p["tokens"][tokens.long()]
 
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import rules
 
 
 def moe_init(d_model, moe_cfg, d_ff_default, dtype, device=None):
@@ -49,7 +50,10 @@ def moe_block(p, x, moe_cfg, *, activation="swiglu"):
     k = moe_cfg.top_k
     cap = max(int(moe_cfg.capacity_factor * T * k / e), 1)
 
-    xt = x.reshape(T, D)
+    # On a mesh the tokens' gradient comes back summed over two uses and
+    # scattered over every mesh axis, which the reshape's backward
+    # mis-sizes: gather and reduce it first (plain tensors: untouched).
+    xt = rules.gather_grad_dims(x.reshape(T, D), (0,), reduce=True)
     logits = L.mm(xt.float(), p["router"])  # (T, E) fp32 routing
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k(probs, k)  # (T, k)
@@ -67,7 +71,14 @@ def moe_block(p, x, moe_cfg, *, activation="swiglu"):
     tok = torch.arange(T * k, device=x.device) // k
     xs = xt[tok]  # (T*k, D)
     buf = torch.zeros((e * cap + 1, D), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot, xs)
+    if type(xs).__name__ == "DTensor":
+        # On a mesh: the token copies and their slots whole on every rank,
+        # the scatter on those local tensors (a scatter of global slot
+        # indices from token shards has no DTensor placement in every
+        # torch), the buffer replicated.
+        buf = rules.add_rows_replicated(buf, slot, xs)
+    else:
+        buf.index_add_(0, slot, xs)
     xe = buf[: e * cap].reshape(e, cap, D)
 
     # Expert FFNs.
@@ -81,7 +92,9 @@ def moe_block(p, x, moe_cfg, *, activation="swiglu"):
     ye_flat = torch.cat([ye.reshape(e * cap, D),
                          torch.zeros((1, D), dtype=ye.dtype,
                                      device=ye.device)], dim=0)
-    y = ye_flat[slot].float()
+    # On a mesh the slots whole: no torch places an index by a tensor
+    # sharded over two mesh axes (pod and data) on one dim.
+    y = ye_flat[rules.gather_dims(slot, (0,))].float()
     y = y * gate_vals.reshape(T * k, 1)
     out = torch.sum(y.reshape(T, k, D), dim=1).to(x.dtype).reshape(B, S, D)
 

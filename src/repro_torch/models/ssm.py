@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import rules
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +70,7 @@ def rwkv_time_mix(p, x, rwkv_cfg, *, state=None, return_state=False):
     xprev = L.cat([shift_in[:, None], x[:, :-1]], dim=1)
     xx = xprev - x
 
-    l = torch.tanh(L.mm(x, p["mix_a"])).reshape(B, S, 5, lora)
+    l = rules.reshape(torch.tanh(L.mm(x, p["mix_a"])), (B, S, 5, lora))
     mixed = []
     for i in range(5):
         mix = p["mu_base"][i].to(f32) + L.einsum(
@@ -77,20 +78,25 @@ def rwkv_time_mix(p, x, rwkv_cfg, *, state=None, return_state=False):
         mixed.append(x + xx * mix.to(x.dtype))
     x_r, x_k, x_v, x_w, x_g = mixed
 
-    r = L.mm(x_r, p["wr"]).reshape(B, S, nh, hd)
-    k = L.mm(x_k, p["wk"]).reshape(B, S, nh, hd)
-    v = L.mm(x_v, p["wv"]).reshape(B, S, nh, hd)
+    r = rules.reshape(L.mm(x_r, p["wr"]), (B, S, nh, hd))
+    k = rules.reshape(L.mm(x_k, p["wk"]), (B, S, nh, hd))
+    v = rules.reshape(L.mm(x_v, p["wv"]), (B, S, nh, hd))
     g = L.mm(x_g, p["wg"])
     # Data-dependent decay in fp32: w in (0, 1).
     dec = p["w0"].to(f32) + L.mm(
         torch.tanh(L.mm(x_w.to(f32), p["decay_a"].to(f32))),
         p["decay_b"].to(f32))
-    w = torch.exp(-torch.exp(dec.clip(-8.0, 8.0))).reshape(B, S, nh, hd)
+    w = rules.reshape(torch.exp(-torch.exp(dec.clip(-8.0, 8.0))),
+                  (B, S, nh, hd))
 
     u = p["u"].to(f32)
     Sst = (torch.zeros((B, nh, hd, hd), dtype=f32, device=x.device)
            if state is None else state[1].to(f32))
     rs, ks, vs = r.to(f32), k.to(f32), v.to(f32)
+    # Pin the recurrence to the batch axes, as the JAX package does (a
+    # no-op on plain tensors).
+    Sst, rs, ks, vs, w = (rules.constrain_batch_dim(t, 0)
+                          for t in (Sst, rs, ks, vs, w))
     ys = []
     for t in range(S):
         r_t, k_t, v_t, w_t = rs[:, t], ks[:, t], vs[:, t], w[:, t]
@@ -102,7 +108,9 @@ def rwkv_time_mix(p, x, rwkv_cfg, *, state=None, return_state=False):
     # Per-head group norm, then gate.
     y = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
         y.var(-1, keepdim=True, unbiased=False) + 1e-5)
-    y = y.reshape(B, S, D) * p["ln_x"].to(f32)
+    # On a mesh the merged heads' gradient may come back sharded, which
+    # the merge's backward cannot split: gather it (plain: untouched).
+    y = rules.gather_grad_dims(y.reshape(B, S, D), (2,)) * p["ln_x"].to(f32)
     y = L.mm(y.to(x.dtype) * F.silu(g), p["wo"])
     if return_state:
         return y, (x[:, -1], Sst.to(x.dtype))
@@ -197,12 +205,14 @@ def mamba_block(p, x, ssm_cfg, *, state=None, return_state=False):
     dt = torch.logaddexp(dt.to(f32) + p["dt_bias"],
                          torch.zeros((), dtype=f32, device=x.device))
     a = torch.exp(-torch.exp(p["a_log"].clip(-8.0, 8.0)) * dt)  # (B, S, nh)
-    xh = xc.reshape(B, S, nh, hd).to(f32)
+    xh = rules.reshape(xc, (B, S, nh, hd)).to(f32)
     b32, c32 = b.to(f32), c.to(f32)
     dtx = dt[..., None] * xh
 
     h = (torch.zeros((B, nh, hd, n), dtype=f32, device=x.device)
          if state is None else state[1].to(f32))
+    h, a, dtx, b32, c32 = (rules.constrain_batch_dim(t, 0)
+                           for t in (h, a, dtx, b32, c32))
     ys = []
     for t in range(S):
         h = a[:, t, :, None, None] * h + torch.einsum(
@@ -210,7 +220,7 @@ def mamba_block(p, x, ssm_cfg, *, state=None, return_state=False):
         ys.append(torch.einsum("bhdn,bn->bhd", h, c32[:, t]))
     y = torch.stack(ys, dim=1)  # (B, S, nh, hd)
     y = y + p["d_skip"][None, None, :, None] * xh
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = rules.gather_grad_dims(y.reshape(B, S, d_inner), (2,)).to(x.dtype)
     # Gated RMS norm (mamba2's norm-before-out).
     y = y * F.silu(z)
     y32 = y.to(f32)

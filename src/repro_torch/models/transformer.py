@@ -34,6 +34,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.sharding import rules
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +257,10 @@ def remat(cfg, fn, *args):
 def _layer_fwd(lp, x, positions, cfg, window, collect_cache: bool):
     """One layer. Returns (x, (aux, cache))."""
     fam = cfg.family
+    # Pin the residual stream to the batch axes at every layer boundary,
+    # as the JAX package does (a no-op on a plain tensor).
+    if cfg.pin_batch:
+        x = rules.constrain_batch_dim(x, 0)
     aux = _zero_aux(x.device)
     cache = None
     if fam in ("dense", "vlm", "moe"):
@@ -383,7 +388,12 @@ def project_logits(model, cfg, x):
 def _chunk_xent(model, cfg, xi, li):
     """(sum of the chunk's log-likelihoods at its unmasked labels, count
     of those labels): fp32, and int32 as ``jnp.sum`` of a mask gives."""
-    logp = torch.log_softmax(project_logits(model, cfg, xi), dim=-1)
+    if cfg.pin_batch:  # batch-sharded logits, as the JAX package pins them
+        xi = rules.constrain_batch_dim(xi, 0)
+    logits = project_logits(model, cfg, xi)
+    if cfg.pin_batch:
+        logits = rules.constrain_batch_dim(logits, 0)
+    logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, li.clamp(min=0).long()[..., None])[..., 0]
     mask = li >= 0
     return (torch.where(mask, ll, torch.zeros((), dtype=ll.dtype,
@@ -403,16 +413,20 @@ def chunked_xent(model, cfg, x, labels):
     n_chunks = S_ // c if S_ % c == 0 else 1
     if S_ % c != 0:
         c = S_
-    xc = x.reshape(B, n_chunks, c, D).transpose(0, 1)   # (n, B, c, D)
+    xc = rules.reshape(x, (B, n_chunks, c, D)).transpose(0, 1)  # (n, B, c, D)
     lc = labels.reshape(B, n_chunks, c).transpose(0, 1)
     s = torch.zeros((), dtype=torch.float32, device=x.device)
     n = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(n_chunks):
+        # On a mesh the chunk's gradient may come back sharded on its
+        # tokens, which the backward of the split above cannot merge back
+        # into the sequence: gather them (plain tensors untouched).
+        xi = rules.gather_grad_dims(xc[i], (1,))
         if torch.is_grad_enabled():
-            si, ni = checkpoint(_chunk_xent, model, cfg, xc[i], lc[i],
+            si, ni = checkpoint(_chunk_xent, model, cfg, xi, lc[i],
                                 use_reentrant=False)
         else:
-            si, ni = _chunk_xent(model, cfg, xc[i], lc[i])
+            si, ni = _chunk_xent(model, cfg, xi, lc[i])
         s = s - si
         n = n + ni
     return s / torch.clamp(n, min=1)
@@ -495,7 +509,15 @@ def init_cache(cfg, spec: CacheSpec, dtype=torch.bfloat16, *, device=None):
 
 def _write_slot(dst, val, at):
     """``dst[:, at] = val`` (``dynamic_update_index_in_dim`` on axis 1), in
-    place on ``dst``, ``at`` a 0-d tensor."""
+    place on ``dst``, ``at`` a 0-d tensor. A ``DTensor`` cache (a dry run
+    on a mesh) takes it as a select over the slots, which ``DTensor`` can
+    place (``index_copy_`` has no sharding rule in every torch)."""
+    if type(dst).__name__ == "DTensor":
+        S = dst.shape[1]
+        hit = (torch.arange(S, device=dst.device) == at).reshape(
+            (1, S) + (1,) * (dst.ndim - 2))
+        dst.copy_(torch.where(hit, val[:, None].to(dst.dtype), dst))
+        return
     dst.index_copy_(1, at.reshape(1).long(), val[:, None].to(dst.dtype))
 
 

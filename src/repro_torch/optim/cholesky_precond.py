@@ -72,7 +72,11 @@ def _seed(seed: int, step: int, index: int) -> int:
 def sketch(other: int, rank: int, *, seed: int, step: int, index: int,
            device) -> torch.Tensor:
     """``Omega / sqrt(rank)``: an ``(other, rank)`` fp32 Gaussian sketch for
-    parameter ``index`` at ``step``, from a generator on ``device``."""
+    parameter ``index`` at ``step``, from a generator on ``device``. On
+    the meta device (a dry run's trace) there is nothing to draw: a meta
+    tensor of the sketch's shape."""
+    if torch.device(device).type == "meta":
+        return torch.empty((other, rank), dtype=torch.float32, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(_seed(seed, step, index))
     om = torch.randn((other, rank), generator=gen, dtype=torch.float32,

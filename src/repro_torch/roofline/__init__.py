@@ -1,1 +1,3 @@
-"""Roofline arithmetic of the PyTorch port (``analysis``)."""
+"""Roofline of the PyTorch port: the per-device operation counter
+(``opcount``, the counterpart of ``repro.roofline.hloparse``) and the
+roofline terms (``analysis``)."""

@@ -1,21 +1,40 @@
-"""Roofline arithmetic, PyTorch port of ``repro.roofline.analysis``: the
-analytic model FLOPs, active parameters and HBM traffic of a (config,
-cell), and the ``Roofline`` row, with NVIDIA H100 SXM constants.
+"""Roofline terms of a step, PyTorch port of ``repro.roofline.analysis``,
+with NVIDIA H100 SXM constants. Three terms per (arch x shape x mesh), in
+seconds:
+
+    compute    = FLOPs_per_device / PEAK_FLOPS
+    memory     = bytes_per_device / HBM_BW
+    collective = collective_bytes_per_device / LINK_BW
+
+The JAX package reads FLOPs and collectives from the compiled per-device
+HLO (``hloparse``); here ``roofline.opcount.OpCounter`` records them from
+the operations a traced step runs on this device, and ``collective_stats``
+costs its collectives as the JAX function costs HLO collectives (all-reduce
+2x the buffer, reduce-scatter x group size to recover the operand,
+all-gather / all-to-all / broadcast 1x). The memory term is the analytic
+traffic model, as in the JAX package (``analytic_memory_bytes``).
 
 The constants are the data sheet's for the H100 SXM at 700 W: 989 TFLOP/s
 dense bf16 on the tensor cores and 3.35 TB/s of HBM3. A card held below
-700 W runs slower than these. The JAX package's ``analyze``,
-``collective_stats`` and its HLO parser read XLA's compiled output, which
-torch does not produce; they are not ported here.
+700 W runs slower than these.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
+
+from repro_torch.roofline import opcount
 
 # NVIDIA H100 SXM (data sheet, 700 W).
 PEAK_FLOPS = 989e12        # dense bf16 FLOP/s per card
 HBM_BW = 3.35e12           # B/s per card
+# One 400 Gb/s NDR InfiniBand port per card (a DGX H100 node: eight cards,
+# eight ConnectX-7 ports), one direction. The production meshes' 16-wide
+# 'model' axis spans two 8-card nodes, so its rings cross InfiniBand,
+# whose link sets their pace; NVLink's 450 GB/s a direction holds only
+# within a node's 8 cards. The JAX package's figure (one ICI link of a
+# v5e) is also 50e9.
+LINK_BW = 50e9             # B/s per card, inter-node
 
 
 @dataclasses.dataclass
@@ -141,3 +160,56 @@ def analytic_memory_bytes(cfg, cell, n_chips, params_local_bytes,
             )
         a_traffic = 2.0 * act * L + cache_bytes
     return p_traffic + a_traffic
+
+
+def collective_stats(records) -> Dict[str, float]:
+    """Per-device bytes moved, by collective kind, with their sum under
+    'total', from an ``OpCounter``'s records (``opcount.Collective``s) or
+    the counter itself: the JAX function's sums over its HLO lines."""
+    return opcount.coll_by_kind(getattr(records, "collectives", records))
+
+
+def analyze(counted, cfg, cell, n_chips: int, *, counts=None,
+            params_local_bytes: float = 0.0, opt_local_bytes: float = 0.0,
+            memory: Optional[dict] = None):
+    """The ``Roofline`` of a traced step. ``counted``: the
+    ``opcount.OpCounter`` the step ran under; ``counts``: another counter
+    to read FLOPs and collectives from (the JAX function's ``hlo_text``:
+    a train cell's accumulation-free trace), else ``counted``. ``memory``:
+    the step's ``argument_bytes``, ``output_bytes`` and ``alias_bytes`` a
+    device; ``temp_bytes`` is the counter's peak of the live bytes the
+    step allocated (``track_memory=True``), XLA's ``memory_analysis``
+    counterpart."""
+    src = counted if counts is None else counts
+    flops, cbytes, colls, _info = opcount.analyze_ops(src)
+    nbytes = analytic_memory_bytes(
+        cfg, cell, n_chips, params_local_bytes, opt_local_bytes
+    )
+    compute_s = flops / PEAK_FLOPS
+    memory_s = nbytes / HBM_BW
+    collective_s = cbytes / LINK_BW
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    bottleneck = max(terms, key=terms.get)
+    mf = model_flops(cfg, cell)
+    useful = mf / (flops * n_chips) if flops else 0.0
+    mem = None
+    if memory is not None:
+        mem = {"argument_bytes": memory.get("argument_bytes", 0),
+               "output_bytes": memory.get("output_bytes", 0),
+               "temp_bytes": (counted.peak_bytes if counted.track_memory
+                              else memory.get("temp_bytes", 0)),
+               "alias_bytes": memory.get("alias_bytes", 0)}
+    return Roofline(
+        flops=flops,
+        bytes_accessed=nbytes,
+        collective_bytes=cbytes,
+        compute_s=compute_s,
+        memory_s=memory_s,
+        collective_s=collective_s,
+        bottleneck=bottleneck,
+        model_flops=mf,
+        useful_ratio=useful,
+        per_device_memory=mem,
+        collectives=colls,
+    )

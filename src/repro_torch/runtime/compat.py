@@ -19,6 +19,11 @@ version-parse; degrade to the old default; one choke point for meshes.
   process: where none exists and ``n == 1``, a one-rank group (``gloo``
   over an in-memory store); ``n`` ranks in one process do not exist in
   torch, so more raises (start them with ``run_gloo_ranks``).
+* ``init_fake_world(n)``, the counterpart of the dry run's
+  ``--xla_force_host_platform_device_count=512``: this process becomes
+  rank 0 of a process group of ``n`` ranks whose collectives move
+  nothing (torch's ``fake`` backend), so the production meshes can be
+  built, and a step traced on them, in one process.
 * ``HAS_AXIS_TYPE``, ``mesh_axis_types_kwargs`` and ``shard_map_norep``:
   the names of JAX features, kept with their torch meaning in their
   docstrings.
@@ -92,6 +97,39 @@ def ensure_host_devices(n: int) -> bool:
     dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
                             rank=0, timeout=timedelta(seconds=PG_TIMEOUT_S))
     return True
+
+
+def init_fake_world(n: int) -> None:
+    """Make this process rank 0 of a process group of ``n`` ranks on
+    torch's ``fake`` backend (``torch.testing._internal.distributed.
+    fake_pg``): every collective returns at once and moves no data, so a
+    ``DeviceMesh`` of ``n`` ranks, and meta-device ``DTensor``s on it,
+    exist in one process. Nothing computed under it may be read as a
+    number: a collective's result holds whatever its input held (or
+    nothing, on the meta device). What it is for is shapes, placements,
+    the operations a rank runs and the collectives it issues.
+
+    A process holds one default group, so this raises where one exists
+    (start the fake world in a process of its own), and raises where this
+    torch has no ``fake`` backend: it never goes on with a smaller
+    world. Feature-detected (DESIGN.md §6): the backend must register
+    under the name ``fake``."""
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError(
+            "this process already holds a process group of "
+            f"{dist.get_world_size()} ranks: run the fake world of {n} "
+            "ranks in a process of its own")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError:
+        FakeStore = None
+    if FakeStore is None or "fake" not in dist.Backend.backend_list:
+        raise RuntimeError(
+            "this torch has no 'fake' process-group backend "
+            "(torch.testing._internal.distributed.fake_pg): a fake world of "
+            f"{n} ranks cannot be built")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(n))
 
 
 def make_mesh_compat(shape: Sequence[int], axes: Sequence[str], *,

@@ -25,17 +25,20 @@ object whose ``shape`` is a dict {axis: size} in mesh order (the tests'
 ``FakeMesh``). ``partition_spec`` maps placements back to the JAX
 package's ``PartitionSpec`` entries, so that the two can be compared.
 
-``set_batch_axes``, ``constrain_dims`` and ``constrain_batch_dim`` are the
-JAX package's layout hints to XLA's sharding propagation inside the model
-code; torch has no such propagation to hint, so here they keep the
-ambient axes and return their input unchanged (the JAX package's functions
-do the same without a mesh in context).
+``set_batch_axes`` and ``constrain_batch_dim`` are the JAX package's
+layout hints to XLA's sharding propagation inside the model code. Here
+``constrain_batch_dim`` places a ``DTensor`` explicitly (batch on the
+ambient batch axes, every other mesh axis replicated) and returns a plain
+tensor unchanged, as the JAX function does without a mesh in context;
+``gather_dims`` places an operand before a reshape ``DTensor`` cannot
+propagate through a sharded dim.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import torch
 from torch.distributed.tensor import Replicate, Shard
 
 # logical axis -> role
@@ -54,16 +57,191 @@ def set_batch_axes(axes: Tuple[str, ...]):
 
 
 def constrain_dims(x, dim_axes):
-    """An XLA layout hint in the JAX package; the identity here."""
+    """An XLA layout hint in the JAX package, which nothing in the models
+    calls; the identity here."""
     del dim_axes
     return x
 
 
 def constrain_batch_dim(x, dim: int):
-    """An XLA layout hint in the JAX package (a no-op there without a mesh
-    in context); the identity here."""
-    del dim
-    return x
+    """Pin dimension ``dim`` of a ``DTensor`` to the ambient batch axes
+    (``set_batch_axes``), as the JAX package pins it with
+    ``with_sharding_constraint``: ``Shard(dim)`` on each batch mesh axis,
+    every other mesh axis replicated (a partial sum reduced, any other
+    shard gathered). ``DTensor`` has no "unconstrained" placement to leave
+    the other axes to, and its greedy propagation, left alone, turns a
+    partial sum into a shard of whatever dim is cheapest (the sequence,
+    the embedding), which later ops cannot propagate. A plain tensor, a
+    dim the batch axes do not divide, or no ambient axes on the tensor's
+    mesh: returned as it is (the JAX function's no-op without a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names or ()
+    axes = [a for a in _BATCH_AXES if a in names]
+    sizes = dict(zip(names, tuple(x.device_mesh.shape)))
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    if not axes or x.shape[dim] % size:
+        return x
+    pls = tuple(Shard(dim % x.ndim) if a in axes else Replicate()
+                for a in names)
+    if tuple(x.placements) == pls:
+        return x
+    return x.redistribute(x.device_mesh, pls)
+
+
+def _shards(pl) -> bool:
+    """True for a placement that splits a tensor dim: ``Shard``, or the
+    strided shard a reshape of a sharded dim leaves (not a ``Shard``
+    subclass in every torch)."""
+    return isinstance(pl, Shard) or (type(pl).__name__ == "_StridedShard"
+                                     and hasattr(pl, "dim"))
+
+
+def gather_dims(x, dims):
+    """``x`` with none of ``dims`` sharded: a ``DTensor`` sharded on one
+    of them (``Shard`` or a strided shard left by a reshape) is
+    redistributed to replicate over those mesh dims, every other placement
+    kept; a plain tensor is returned as it is. The model code places its
+    operands so before a reshape that ``DTensor`` cannot propagate through
+    a sharded dim (splitting the sequence into attention blocks)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.ndim for d in dims}
+    pls = [Replicate() if _shards(pl) and pl.dim in dims else pl
+           for pl in x.placements]
+    if pls == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pls)
+
+
+def reduce_partial(x):
+    """``x`` with every partial placement reduced (replicated over its
+    mesh dims), the shards kept; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    pls = [Replicate() if pl.is_partial() else pl for pl in x.placements]
+    if pls == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pls)
+
+
+def add_rows_replicated(buf, index, src):
+    """``buf.index_add(0, index, src)`` for ``DTensor`` ``index`` / ``src``
+    (``buf`` plain): both gathered whole and reduced, the add run on the
+    local tensors, the result a replicated ``DTensor`` on their mesh
+    (differentiable through ``to_local`` / ``from_local``)."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(t):
+        return reduce_partial(gather_dims(t, range(t.ndim)))
+
+    index, src = whole(index), whole(src)
+    mesh = src.device_mesh
+    out = buf.to(src.to_local().device).index_add(
+        0, index.to_local(), src.to_local())
+    return DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _GatherGrad(torch.autograd.Function):
+    """Autograd identity whose backward gathers dims of the gradient (and,
+    with ``reduce``, reduces its partial sums)."""
+
+    @staticmethod
+    def forward(ctx, x, dims, reduce):
+        ctx.dims, ctx.reduce = dims, reduce
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = gather_dims(g, ctx.dims)
+        return (reduce_partial(g) if ctx.reduce else g), None, None
+
+
+def gather_grad_dims(x, dims, *, reduce: bool = False):
+    """``x``, whose gradient (a ``DTensor``) reaches the ops before this
+    point with none of ``dims`` sharded (``gather_dims`` in the backward)
+    and, with ``reduce``, no partial sum left (``reduce_partial``): where
+    an earlier op's backward cannot place the gradient as it arrives (a
+    reshape's backward splitting a sharded dim). A plain tensor is
+    returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    dims = tuple(dims)
+    if not isinstance(x, DTensor) or not x.requires_grad or not (
+            dims or reduce):
+        return x
+    return _GatherGrad.apply(x, dims, reduce)
+
+
+def _view_groups(src, dst):
+    """The groups of a reshape from ``src`` to ``dst``: (input dims, output
+    dims) pairs, each the fewest contiguous dims of equal product."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        ins, outs, pi, pj = [], [], 1, 1
+        if i < len(src):
+            ins.append(i)
+            pi, i = src[i], i + 1
+        if j < len(dst):
+            outs.append(j)
+            pj, j = dst[j], j + 1
+        while pi != pj:
+            if pi < pj:
+                ins.append(i)
+                pi, i = pi * src[i], i + 1
+            else:
+                outs.append(j)
+                pj, j = pj * dst[j], j + 1
+        groups.append((ins, outs))
+    return groups
+
+
+def reshape_gathers(x, shape) -> set:
+    """The dims of ``DTensor`` ``x`` that ``reshape(x, shape)`` gathers: a
+    sharded dim that the reshape merges behind another dim, or splits with
+    a first factor its shards do not divide (32 heads over a 16-wide axis
+    into 8 KV groups of 4), or a strided shard in any dim the reshape
+    changes. Every other shard stays and moves to its output dim, which
+    every torch places with no collective."""
+    n_of, strided = {}, set()
+    for n, pl in zip(x.device_mesh.shape, x.placements):
+        if _shards(pl):
+            d = pl.dim % x.ndim
+            n_of[d] = n_of.get(d, 1) * n
+            if type(pl) is not Shard:
+                strided.add(d)
+    gather = set()
+    for ins, outs in _view_groups(tuple(x.shape), tuple(shape)):
+        ins = [d for d in ins if x.shape[d] != 1]
+        outs = [d for d in outs if shape[d] != 1]
+        if len(ins) == 1 and len(outs) == 1:
+            continue
+        for d in ins:
+            if d in n_of and (d in strided or d != ins[0]
+                              or x.shape[d] % n_of[d]
+                              or shape[outs[0]] % n_of[d]):
+                gather.add(d)
+    return gather
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``; a ``DTensor`` first gathers the dims of
+    ``reshape_gathers``, so that its view has one placement in every
+    torch; a plain tensor reshapes as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    return gather_dims(x, reshape_gathers(x, shape)).reshape(shape)
 
 
 def axis_sizes(mesh) -> dict:
