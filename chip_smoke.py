@@ -1723,7 +1723,9 @@ def _reduced_on_card(torch, np, dev, seed):
                 lc, cc = decode_step(cpu, cfg, cc, toks[:, t])
                 lg, cg = decode_step(card, cfg, cg, toks[:, t].to(dev))
                 pairs.append((lc, lg))
-                pairs += [(cc[k], cg[k]) for k in cc if k != "pos"]
+                # A step writes its cache in place: keep this step's.
+                pairs += [(cc[k].clone(), cg[k].clone()) for k in cc
+                          if k != "pos"]
         for ref, got in pairs:
             err = float((got.cpu().float() - ref.float()).abs().max())
             worst = max(worst, err / (tol * (1 + float(ref.abs().max()))))
@@ -1822,9 +1824,18 @@ def serve_phase(torch, np, dev, seed, card):
           "serve: generated tokens off the vocabulary or the prompt")
     # The same sequence teacher-forced through decode_step, each step timed
     # by CUDA events and its logits checked finite.
+    # The cache is donated: every leaf keeps its storage across the steps,
+    # and the last step's peak above its start is its own work, not a
+    # copy of the cache.
     step_ms, finite, cache = [], True, c0
+    ptrs = {k: v.data_ptr() for k, v in c0.items()}
     with torch.inference_mode():
         for t in range(cache_len):
+            if t == cache_len - 1:
+                torch.cuda.synchronize()
+                peak_before = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step_base = torch.cuda.memory_allocated()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -1833,6 +1844,9 @@ def serve_phase(torch, np, dev, seed, card):
             finite &= bool(torch.isfinite(lg).all())
             b.synchronize()
             step_ms.append(a.elapsed_time(b))
+    step_peak = torch.cuda.max_memory_allocated() - step_base
+    check({k: v.data_ptr() for k, v in cache.items()} == ptrs,
+          "serve: a decode step moved a cache leaf to new storage")
     check(finite, "serve: non-finite decode logits at full width")
     gen_ms = np.asarray(step_ms[SERVE_PROMPT:])
     # Where a step's time goes: the device's own time in it (the kernels'
@@ -1853,7 +1867,7 @@ def serve_phase(torch, np, dev, seed, card):
                   for p in range(SERVE_PROMPT, cache_len)]
     bound_ms = float(np.mean(step_bytes)) / HBM_BYTES_PER_S * 1e3
     whole_ms = (pbytes + cbytes) / HBM_BYTES_PER_S * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(peak_before, torch.cuda.max_memory_allocated()) / 1e9
     print(f"path 3l (a) serve {SERVE_ARCH} full width "
           f"({param_count(model)} parameters, {pbytes / 1e9:.3f} GB "
           f"{cfg.param_dtype}; init {t_init:.1f} s) batch {SERVE_BATCH}, "
@@ -1870,6 +1884,10 @@ def serve_phase(torch, np, dev, seed, card):
           f"parameters + the whole cache: {whole_ms:.3f} ms); peak memory "
           f"{peak_gb - base_gb:.2f} GB above the {base_gb:.2f} GB the "
           f"smoke held before; logits finite {finite}")
+    print(f"  decode step (the last teacher-forced one) peak "
+          f"{step_peak / 1e6:.3f} MB above its start beside the "
+          f"{cbytes / 1e6:.1f} MB cache it writes in place; every cache "
+          f"leaf kept its storage over the {cache_len} steps")
     if dev_ms is None:
         print("  decode step device time: not measured (the profiler shows "
               "no device time)")
@@ -2175,7 +2193,8 @@ def _encdec_on_card(torch, np, dev, seed):
             cache["pos"] = cache["pos"] + 8
             for t in range(4):
                 lg, cache = decode_step(model, cfg, cache, nxt[t].to(where))
-                out += [lg, cache["k"], cache["v"]]
+                # The step wrote its cache in place: keep this step's.
+                out += [lg, cache["k"].clone(), cache["v"].clone()]
         return out
 
     worst = 0.0
@@ -2208,6 +2227,11 @@ TRAIN_LM_LOSSES_SEED0 = (489.9023, 404.2239)
 #: dry run names, and a decode cell with its cache placed on the mesh.
 DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "cholesky_precond"),
                 ("llama3.2-3b", "decode_32k", "adamw"))
+#: The same cells' records before the decode cache was donated and the
+#: loss reduced across vocabulary shards (H100 host, torch 2.11):
+#: collective bytes a device and ``temp_bytes``.
+DRYRUN_BEFORE = {"train_4k": (1.708e12, 49.51e9),
+                 "decode_32k": (2.85e6, 92.08e9)}
 #: Seconds path 3n waits at most for (b)'s subprocesses to finish.
 DRYRUN_WAIT_S = 240
 
@@ -2261,6 +2285,15 @@ def dryrun_phase(runs):
               f"{tail[-1] if tail else ''}")
         for rec in recs:
             print(f"  record: {json.dumps(rec)}")
+            coll, temp = DRYRUN_BEFORE[shape]
+            if "error" not in rec:
+                print(f"  collective bytes a device "
+                      f"{rec['collective_bytes_per_device']:.4g} (before: "
+                      f"{coll:.4g}), temp_bytes "
+                      f"{rec['memory_analysis']['temp_bytes'] / 1e9:.2f} GB "
+                      f"(before: {temp / 1e9:.2f} GB), alias_bytes "
+                      f"{rec['memory_analysis']['alias_bytes'] / 1e9:.2f} "
+                      f"GB")
         check(p.returncode == 0 and len(recs) == 1
               and "error" not in recs[0] and recs[0]["flops_per_device"] > 0,
               f"path 3n (b): the dry run of {arch} x {shape} failed "
@@ -2783,7 +2816,9 @@ def main(argv=None) -> int:
     # the float64 chain refactorization than the plain version plus 4).
     cases = list(itertools.product(
         ((1, 64, 4, 16), (3, 16, 16, 5), (2, 4, 64, 32)), (1, -1), dtypes))
-    wide_cases = list(itertools.product(((1, 3, 320, 16), (1, 3, 512, 16)),
+    # Two blocks (one off-diagonal apply) keep the walk's plain version,
+    # a Python loop over rows, inside the smoke's time.
+    wide_cases = list(itertools.product(((1, 2, 320, 16), (1, 2, 512, 16)),
                                         (1, -1), dtypes))
     print(f"phase 2d: btd_chain vs plain, {len(cases)} cases, and "
           f"{len(wide_cases)} with blocks above 256 rows")

@@ -308,6 +308,8 @@ def cache_from_numpy(cache, *, device=None) -> dict:
 
 
 def cache_to_numpy(cache) -> dict:
-    """The inverse of ``cache_from_numpy`` (bf16 widened to fp32)."""
+    """The inverse of ``cache_from_numpy`` (bf16 widened to fp32): a copy,
+    since a decode step writes its cache in place."""
     return {name: (np.asarray(int(t), np.int32) if name == "pos"
-                   else _array_to_numpy(t)) for name, t in cache.items()}
+                   else np.array(_array_to_numpy(t)))
+            for name, t in cache.items()}

@@ -138,7 +138,10 @@ def _train_step(cfg, opt, clip_norm, grad_accum, place):
 
 def make_serve_step(cfg: ModelConfig):
     def serve_step(model, cache, tokens):
-        return decode_step(model, cfg, cache, tokens)
+        # A serve step takes no gradient (the JAX one is a jit of the
+        # forward): no autograd graph holds its activations.
+        with torch.no_grad():
+            return decode_step(model, cfg, cache, tokens)
 
     return serve_step
 
@@ -149,7 +152,8 @@ def make_prefill_step(cfg: ModelConfig):
     def prefill_step(model, batch):
         from repro_torch.models.model import forward
 
-        return forward(model, cfg, batch)[:, -1]
+        with torch.no_grad():   # a forward only, as the JAX jit of it
+            return forward(model, cfg, batch)[:, -1]
 
     return prefill_step
 

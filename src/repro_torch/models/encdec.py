@@ -216,8 +216,9 @@ def init_encdec_cache(cfg, batch, slots, src_len, dtype=torch.bfloat16, *,
 
 def encdec_decode_step(model, cfg, cache, tokens):
     """One decoder step against the self-K/V cache and the precomputed
-    cross-K/V. tokens: (B,) int. Returns (logits fp32 (B, V), a new cache;
-    the one given is left as it was)."""
+    cross-K/V. tokens: (B,) int. Returns (logits fp32 (B, V), the cache):
+    the cache is donated, its ``k``/``v`` slot and ``pos`` written in
+    place (``transformer.decode_step``)."""
     from repro_torch.models.transformer import _write_slot
 
     B = tokens.shape[0]
@@ -231,7 +232,6 @@ def encdec_decode_step(model, cfg, cache, tokens):
     scale = L.inv_sqrt(a.head_dim)
     KV, G = a.num_kv_heads, a.num_heads // a.num_kv_heads
     pos_arr = torch.full((B, 1), 0, dtype=torch.int32, device=x.device) + pos
-    k_new, v_new = cache["k"].clone(), cache["v"].clone()
     for i, lp in enumerate(model.dec_layers):
         xk, xv = cache["xk"][i], cache["xv"][i]
         h = L.apply_norm(cfg.norm, lp["ln1"], x)
@@ -251,10 +251,8 @@ def encdec_decode_step(model, cfg, cache, tokens):
         x = x + L.einsum("bhk,hkd->bd", o, lp["cross_attn"]["wo"])
         h = L.apply_norm(cfg.norm, lp["ln2"], x)
         x = x + L.mlp(lp["mlp"], h, activation=cfg.activation)
-        _write_slot(k_new[i], k1, write_at)
-        _write_slot(v_new[i], v1, write_at)
-    new_cache = dict(cache)
-    new_cache["k"], new_cache["v"] = k_new, v_new
-    new_cache["pos"] = pos + 1
+        _write_slot(cache["k"][i], k1, write_at)
+        _write_slot(cache["v"][i], v1, write_at)
+    pos.add_(1)
     x = L.apply_norm(cfg.norm, model["final_norm"], x)
-    return _vocab(model, cfg, x), new_cache
+    return _vocab(model, cfg, x), dict(cache)

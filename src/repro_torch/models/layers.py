@@ -16,6 +16,7 @@ torch refuses them: ``mm`` writes the promotion out.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -253,6 +254,177 @@ def _dtensor_einsum(eq, *xs):
     return torch.einsum(eq, *(
         rules.gather_grad_dims(rules.gather_dims(x, g), g)
         for x, g in zip(xs, einsum_gathers(eq, *xs))))
+
+
+# ---------------------------------------------------------------------------
+# Sequence recurrences (``jax.lax.scan``).
+# ---------------------------------------------------------------------------
+
+
+def scan(step, carry, xs, consts=()):
+    """``jax.lax.scan`` over axis 1: ``step(carry, x_t, *consts) -> (carry,
+    y_t)`` for t in range(S), ``x_t`` the tuple of ``x[:, t]`` for x in
+    ``xs`` (each (B, S, ...)); returns (the last carry, the y_t stacked
+    on axis 1). ``consts`` are tensors every step reads (passed, not
+    closed over, so that a gradient reaches them on the meta device).
+
+    On tensors that hold values it is the Python loop over t. On the meta
+    device (a dry run) no values flow, so one step stands for all S: it is
+    traced once under ``opcount.weighted(S)``, which counts its FLOPs and
+    collectives S times over as ``hloparse`` weighs a while body, and what
+    the loop would keep (its outputs, its saved per-step residuals) is
+    made at its full S length, so that a tracked peak holds what the
+    loop's holds (``_ScanOnce`` under autograd).
+    """
+    if carry.device.type != "meta":
+        return _scan_loop(step, carry, xs, consts)
+    parts = (carry, *xs, *consts)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in parts)):
+        c1, ys, _ = _scan_once(step, carry, xs, consts)
+        return c1, ys
+    c1, ys = _ScanOnce.apply(step, len(xs), *parts)
+    node = ys.grad_fn
+    anchor = node.anchor()
+    if anchor is not None:
+        # The graph keeps what the step saved, as it would keep the loop's
+        # residuals (no ``checkpoint`` dropped them): hold their bytes for
+        # as long as it does (a finalizer holds its arguments until then).
+        weakref.finalize(anchor, lambda held: None,
+                         _meta_bytes(node.residual_bytes))
+    return c1, ys
+
+
+def _scan_loop(step, carry, xs, consts):
+    ys = []
+    for t in range(xs[0].shape[1]):
+        carry, y = step(carry, tuple(x[:, t] for x in xs), *consts)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
+def _nbytes(t) -> int:
+    """Bytes of the storage rank 0 holds of ``t`` (a ``DTensor``'s local
+    shard)."""
+    return getattr(t, "_local_tensor", t).untyped_storage().nbytes()
+
+
+def _storage_key(t) -> int:
+    return getattr(t, "_local_tensor", t).untyped_storage()._cdata
+
+
+def _meta_bytes(nbytes):
+    """A meta tensor of ``nbytes`` bytes standing for storages the loop
+    would hold (a dispatched allocation: a tracking ``OpCounter`` sees
+    it)."""
+    return torch.empty((max(int(nbytes), 0),), dtype=torch.uint8,
+                       device="meta")
+
+
+def _full_length(y, S):
+    """``y`` (one step's output, or a gradient of one step's input) as the
+    loop's stack of S of them on axis 1: a new storage, placed as ``y``."""
+    return y.unsqueeze(1).expand(
+        (y.shape[0], S) + tuple(y.shape[1:])).contiguous()
+
+
+def _leaves(parts):
+    """Fresh leaves of ``parts`` (each requiring grad as its source does),
+    for tracing one step on a graph of its own."""
+    return [t.detach().requires_grad_(t.requires_grad) for t in parts]
+
+
+def _scan_once(step, carry, xs, consts):
+    """One step traced at weight S (on a graph of its own where grad is
+    enabled). Returns (carry out, the outputs at full length, the bytes
+    of the residuals the loop's graph would keep)."""
+    from repro_torch.roofline import opcount
+
+    S = xs[0].shape[1]
+    before = opcount.live_bytes()
+    c_in, *k_in = _leaves((carry, *consts))
+    x_in = _leaves([x[:, 0] for x in xs])
+    saved = set()
+
+    def pack(t):
+        saved.add(_storage_key(t))
+        return t
+
+    # The step's own graph keeps its residuals, under remat too (an outer
+    # ``checkpoint`` would drop them in its first forward only).
+    with opcount.weighted(S), \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        c1, y1 = step(c_in, tuple(x_in), *k_in)
+    kept = opcount.live_bytes() - before - _nbytes(c1) - _nbytes(y1)
+    # The loop keeps each step's residuals and, where a step saves its
+    # carry, every carry but the last (returned).
+    residual_bytes = S * kept
+    if saved & {_storage_key(c_in), _storage_key(c1)}:
+        residual_bytes += (S - 1) * _nbytes(c1)
+    c1, y1 = c1.detach(), y1.detach()   # the step's graph goes
+    held = _meta_bytes(S * _nbytes(y1))  # the loop's list, until its stack
+    ys = _full_length(y1, S)
+    del held
+    return c1, ys, residual_bytes
+
+
+class _ScanOnce(torch.autograd.Function):
+    """``scan`` on the meta device under autograd. The forward traces one
+    step at weight S and saves an empty anchor tensor beside its inputs;
+    ``scan`` holds a meta tensor of the loop's residual bytes for as long
+    as the graph holds the anchor, so they come and go as the loop's do: a
+    ``torch.utils.checkpoint`` drops both in its first forward, and its
+    recompute runs this forward again, keeping them until the backward.
+    The backward retraces the step uncounted and counts its VJP at weight
+    S."""
+
+    @staticmethod
+    def forward(ctx, step, n_xs, carry, *rest):
+        xs, consts = rest[:n_xs], rest[n_xs:]
+        with torch.enable_grad():
+            c1, ys, ctx.residual_bytes = _scan_once(step, carry, xs,
+                                                    consts)
+        ctx.step, ctx.n_xs = step, n_xs
+        ctx.set_materialize_grads(False)   # an unused carry: no gradient
+        anchor = _meta_bytes(0)
+        ctx.anchor = weakref.ref(anchor.untyped_storage())
+        ctx.save_for_backward(carry, *xs, *consts, anchor)
+        return c1, ys
+
+    @staticmethod
+    def backward(ctx, g_carry, g_ys):
+        from repro_torch.roofline import opcount
+
+        carry, *rest, _ = ctx.saved_tensors
+        xs, consts = rest[:ctx.n_xs], rest[ctx.n_xs:]
+        S = xs[0].shape[1]
+        with torch.enable_grad():
+            c_in, *k_in = _leaves((carry, *consts))
+            x_in = _leaves([x[:, 0] for x in xs])
+            with opcount.paused():
+                c1, y1 = ctx.step(c_in, tuple(x_in), *k_in)
+            # The carry's gradient is a step's own input in all but the
+            # last trip: trace the step with one (zeros where the last
+            # carry is unused).
+            if g_carry is None:
+                g_carry = torch.zeros_like(c1)
+            ins = [t for t in (c_in, *x_in, *k_in) if t.requires_grad]
+            with opcount.weighted(S):
+                # Where a step's slice of the output's gradient is a new
+                # storage (a DTensor gathers a sequence shard for it), the
+                # loop's stack backward holds all S of them at once.
+                before = opcount.live_bytes()
+                g_y = g_ys[:, 0]
+                held = _meta_bytes((S - 1)
+                                   * (opcount.live_bytes() - before))
+                got = iter(torch.autograd.grad(
+                    (c1, y1), ins, (g_carry, g_y), allow_unused=True))
+                del held
+        g_c, *g_rest = [next(got) if t.requires_grad else None
+                        for t in (c_in, *x_in, *k_in)]
+        g_xs = [None if g is None else _full_length(g, S)
+                for g in g_rest[:ctx.n_xs]]
+        return (None, None, g_c, *g_xs, *g_rest[ctx.n_xs:])
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Attention-free sequence mixers, PyTorch port: RWKV6 (Finch) and Mamba2
 (SSD).
 
-Both are exact linear recurrences, looped over time in fp32 as the JAX
-package scans them. Decode is a single recurrence step against an O(1)
-state.
+Both are exact linear recurrences in fp32, run over time by
+``layers.scan`` as the JAX package runs them by ``jax.lax.scan``. Decode
+is a single recurrence step against an O(1) state.
 
 RWKV6 per-head state: S in R^{hd x hd} with data-dependent per-channel decay
     S_t = diag(w_t) S_{t-1} + k_t v_t^T,
@@ -97,14 +97,7 @@ def rwkv_time_mix(p, x, rwkv_cfg, *, state=None, return_state=False):
     # no-op on plain tensors).
     Sst, rs, ks, vs, w = (rules.constrain_batch_dim(t, 0)
                           for t in (Sst, rs, ks, vs, w))
-    ys = []
-    for t in range(S):
-        r_t, k_t, v_t, w_t = rs[:, t], ks[:, t], vs[:, t], w[:, t]
-        kv = torch.einsum("bhk,bhv->bhkv", k_t, v_t)
-        ys.append(torch.einsum("bhk,bhkv->bhv", r_t,
-                               Sst + u[None, :, :, None] * kv))
-        Sst = w_t[..., None] * Sst + kv
-    y = torch.stack(ys, dim=1)  # (B, S, nh, hd)
+    Sst, y = L.scan(_rwkv_step, Sst, (rs, ks, vs, w), (u,))  # (B, S, nh, hd)
     # Per-head group norm, then gate.
     y = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
         y.var(-1, keepdim=True, unbiased=False) + 1e-5)
@@ -115,6 +108,13 @@ def rwkv_time_mix(p, x, rwkv_cfg, *, state=None, return_state=False):
     if return_state:
         return y, (x[:, -1], Sst.to(x.dtype))
     return y
+
+
+def _rwkv_step(Sst, x_t, u):
+    r_t, k_t, v_t, w_t = x_t
+    kv = torch.einsum("bhk,bhv->bhkv", k_t, v_t)
+    y_t = torch.einsum("bhk,bhkv->bhv", r_t, Sst + u[None, :, :, None] * kv)
+    return w_t[..., None] * Sst + kv, y_t
 
 
 def rwkv_channel_mix_init(d_model, d_ff, dtype, device=None):
@@ -183,6 +183,12 @@ def _causal_conv(x, w, conv_state=None):
     return out, new_state
 
 
+def _mamba_step(h, x_t):
+    a_t, dtx_t, b_t, c_t = x_t
+    h = a_t[:, :, None, None] * h + torch.einsum("bhd,bn->bhdn", dtx_t, b_t)
+    return h, torch.einsum("bhdn,bn->bhd", h, c_t)
+
+
 def mamba_block(p, x, ssm_cfg, *, state=None, return_state=False):
     """x: (B, S, D). state: (conv_state (B, K-1, C), h (B, nh, hd, N))."""
     B, S, D = x.shape
@@ -213,12 +219,7 @@ def mamba_block(p, x, ssm_cfg, *, state=None, return_state=False):
          if state is None else state[1].to(f32))
     h, a, dtx, b32, c32 = (rules.constrain_batch_dim(t, 0)
                            for t in (h, a, dtx, b32, c32))
-    ys = []
-    for t in range(S):
-        h = a[:, t, :, None, None] * h + torch.einsum(
-            "bhd,bn->bhdn", dtx[:, t], b32[:, t])
-        ys.append(torch.einsum("bhdn,bn->bhd", h, c32[:, t]))
-    y = torch.stack(ys, dim=1)  # (B, S, nh, hd)
+    h, y = L.scan(_mamba_step, h, (a, dtx, b32, c32))  # (B, S, nh, hd)
     y = y + p["d_skip"][None, None, :, None] * xh
     y = rules.gather_grad_dims(y.reshape(B, S, d_inner), (2,)).to(x.dtype)
     # Gated RMS norm (mamba2's norm-before-out).

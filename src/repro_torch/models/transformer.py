@@ -20,7 +20,8 @@ structure:
 
 ``decode_step`` walks the same layers with per-layer cache slices; SWA
 caches are ring buffers (O(window) memory for long streams). A decode
-step returns a new cache and leaves the one it was given as it was.
+step takes its cache donated, as the JAX dry run's step does: it writes
+every leaf in place and returns the same tensors.
 """
 from __future__ import annotations
 
@@ -379,7 +380,15 @@ def forward_lm(model, cfg, tokens, *, embeds=None, collect_cache=False,
 
 def project_logits(model, cfg, x):
     if cfg.tie_embeddings:
-        logits = L.einsum("...d,vd->...v", x, model["embed"]["tokens"])
+        w = model["embed"]["tokens"]
+        if 1 in rules.sharded_dims(w):
+            # A table sharded on its embedding dim (fsdp) gets its gradient
+            # from here sharded there with a partial sum over the
+            # vocabulary's axis, which torch 2.11 cannot add to the
+            # lookup's (a partial sum over the batch's axes): place it as
+            # the table.
+            w = rules.place_grad_like(w)
+        logits = L.einsum("...d,vd->...v", x, w)
     else:
         logits = L.mm(x, model["lm_head"]["w"])
     return L.softcap(logits.float(), cfg.logit_softcap)
@@ -391,14 +400,45 @@ def _chunk_xent(model, cfg, xi, li):
     if cfg.pin_batch:  # batch-sharded logits, as the JAX package pins them
         xi = rules.constrain_batch_dim(xi, 0)
     logits = project_logits(model, cfg, xi)
-    if cfg.pin_batch:
-        logits = rules.constrain_batch_dim(logits, 0)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, li.clamp(min=0).long()[..., None])[..., 0]
+    if cfg.pin_batch:   # the vocabulary's shard stays (``_label_loglik``)
+        logits = rules.constrain_batch_dim(logits, 0, keep=(-1,))
+    ll = _label_loglik(logits, li.clamp(min=0).long())
     mask = li >= 0
     return (torch.where(mask, ll, torch.zeros((), dtype=ll.dtype,
                                               device=ll.device)).sum(),
             mask.sum(dtype=torch.int32))
+
+
+def _label_loglik(logits, labels):
+    """``log_softmax(logits)`` at ``labels`` over the last dim. Logits that
+    are a ``DTensor`` sharded on the vocabulary take it shard by shard, as
+    XLA reduces the JAX loss: ``picked - (m + log sum exp(logits - m))``,
+    ``m`` the detached max, the max and the sums reduced across the shards
+    (all-reduces of the labels' shape) and the label's logit picked where
+    the shard's vocabulary indices equal it; nothing gathers the
+    vocabulary. Other tensors take ``log_softmax`` and ``gather``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    last = logits.ndim - 1
+    if last not in rules.sharded_dims(logits):
+        logp = torch.log_softmax(logits, dim=-1)
+        return torch.gather(logp, -1, labels[..., None])[..., 0]
+    # The vocabulary's indices, sharded as the logits' last dim.
+    vocab = distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.device),
+        logits.device_mesh,
+        [Shard(0) if rules._shards(pl) and pl.dim % logits.ndim == last
+         else Replicate() for pl in logits.placements])
+    # The reductions over the vocabulary each all-reduced to a replica (no
+    # shard of the batch over the vocabulary's axis), and the gradients
+    # their backward hands back sliced to the vocabulary's shards: else
+    # DTensor moves the logits to meet them.
+    m = rules.reduce_partial(logits.detach().amax(-1, keepdim=True))
+    e = rules.place_grad_like(torch.exp(logits - m))
+    lse = m + torch.log(rules.reduce_partial(e.sum(-1, keepdim=True)))
+    picked = rules.place_grad_like(
+        torch.where(vocab == labels[..., None], logits, 0.0))
+    return rules.reduce_partial(picked.sum(-1)) - lse[..., 0]
 
 
 def chunked_xent(model, cfg, x, labels):
@@ -522,13 +562,16 @@ def _write_slot(dst, val, at):
 
 
 def decode_step(model, cfg, cache, tokens):
-    """One decode step. tokens: (B,) int. Returns (logits (B, V), cache)."""
+    """One decode step. tokens: (B,) int. Returns (logits (B, V), cache).
+
+    The cache is donated (the JAX dry run's ``donate_argnums``): every leaf
+    is written in place, ``pos`` included, and the returned dict holds the
+    same tensors. Clone a cache to keep it as it was."""
     pos = cache["pos"]
     x = L.embed_lookup(model["embed"], tokens)  # (B, D)
     if cfg.embed_scale:
         x = x * L.sqrt_scale(cfg.d_model, x.dtype)
     fam = cfg.family
-    new_cache = dict(cache)
 
     if fam in ("dense", "vlm", "moe"):
         slots = cache["k"].shape[2]
@@ -536,7 +579,6 @@ def decode_step(model, cfg, cache, tokens):
                     and slots <= cfg.attn.window)
         write_at = (torch.remainder(pos, slots) if ring
                     else torch.clamp(pos, max=slots - 1))
-        k_new, v_new = cache["k"].clone(), cache["v"].clone()
         windows = layer_windows(cfg).tolist()
         for i, lp in enumerate(model.layers):
             h = L.apply_norm(cfg.norm, lp["ln1"], x)
@@ -557,12 +599,10 @@ def decode_step(model, cfg, cache, tokens):
             if cfg.post_norm:
                 y = L.apply_norm(cfg.norm, lp["ln2_post"], y)
             x = x + y
-            _write_slot(k_new[i], k1, write_at)
-            _write_slot(v_new[i], v1, write_at)
-        new_cache["k"], new_cache["v"] = k_new, v_new
+            _write_slot(cache["k"][i], k1, write_at)
+            _write_slot(cache["v"][i], v1, write_at)
 
     elif fam == "rwkv":
-        sh_ts, Ss, sh_cs = [], [], []
         for i, lp in enumerate(model.layers):
             sh_t, Sst = cache["shift_t"][i], cache["S"][i]
             sh_c = cache["shift_c"][i]
@@ -575,20 +615,15 @@ def decode_step(model, cfg, cache, tokens):
             y, sh_c2 = S.rwkv_channel_mix(lp["cmix"], h, state=sh_c,
                                           return_state=True)
             x = x + y[:, 0]
-            sh_ts.append(sh_t2.to(sh_t.dtype))
-            Ss.append(S2.to(Sst.dtype))
-            sh_cs.append(sh_c2.to(sh_c.dtype))
-        new_cache["shift_t"] = torch.stack(sh_ts)
-        new_cache["S"] = torch.stack(Ss)
-        new_cache["shift_c"] = torch.stack(sh_cs)
+            sh_t.copy_(sh_t2)
+            Sst.copy_(S2)
+            sh_c.copy_(sh_c2)
 
     elif fam == "mamba_hybrid":
         shared = model["shared"]
         w_slots = cache["sk"].shape[2]
         write_at = torch.remainder(pos, w_slots)
         n_groups, every, tail = hybrid_groups(cfg)
-        sk_new, sv_new = cache["sk"].clone(), cache["sv"].clone()
-        convs, hs = [], []
         for g in range(n_groups + (1 if tail else 0)):
             # The shared block's occurrence g, against its own K/V cache.
             h = L.apply_norm(cfg.norm, shared["ln1"], x)
@@ -599,8 +634,8 @@ def decode_step(model, cfg, cache, tokens):
             x = x + L.mlp(shared["mlp"],
                           L.apply_norm(cfg.norm, shared["ln2"], x),
                           activation=cfg.activation)
-            _write_slot(sk_new[g], k1, write_at)
-            _write_slot(sv_new[g], v1, write_at)
+            _write_slot(cache["sk"][g], k1, write_at)
+            _write_slot(cache["sv"][g], v1, write_at)
             size = every if g < n_groups else tail
             for i in range(g * every, g * every + size):
                 conv_st, h_st = cache["conv"][i], cache["h"][i]
@@ -609,10 +644,8 @@ def decode_step(model, cfg, cache, tokens):
                     model.layers[i]["mamba"], hn, cfg.ssm,
                     state=(conv_st, h_st), return_state=True)
                 x = x + y[:, 0]
-                convs.append(conv2.to(conv_st.dtype))
-                hs.append(h2.to(h_st.dtype))
-        new_cache["conv"], new_cache["h"] = torch.stack(convs), torch.stack(hs)
-        new_cache["sk"], new_cache["sv"] = sk_new, sv_new
+                conv_st.copy_(conv2)
+                h_st.copy_(h2)
 
     else:
         raise ValueError(fam)
@@ -623,5 +656,5 @@ def decode_step(model, cfg, cache, tokens):
     else:
         logits = L.mm(x, model["lm_head"]["w"])
     logits = L.softcap(logits.float(), cfg.logit_softcap)
-    new_cache["pos"] = pos + 1
-    return logits, new_cache
+    pos.add_(1)
+    return logits, dict(cache)

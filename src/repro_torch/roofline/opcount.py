@@ -30,10 +30,13 @@ Counting the ``DTensor``-level operation would count the global product
 global nor the per-device figure). The shape inference ``DTensor`` runs
 on fake tensors is not work and is skipped.
 
-No trip counts. The layers are a Python loop, and ``torch.utils.
-checkpoint`` recomputes a layer's forward inside the backward as real
-operations, so the counter sees every layer's every operation as it runs:
-nothing needs ``hloparse``'s loop reconstruction.
+Trip counts only where a loop says so. The layers are a Python loop, and
+``torch.utils.checkpoint`` recomputes a layer's forward inside the
+backward as real operations, so the counter sees every layer's every
+operation as it runs. The one exception is ``models.layers.scan`` on the
+meta device, which traces one step of a sequence recurrence for all of
+its steps inside ``weighted(S)``: there each FLOP and collective counts S
+times over, as ``hloparse`` weighs a while body by its trip count.
 
 A factor's update counts nothing: while a counter is active it wraps
 ``core.backends.dispatch`` in ``paused``. On the card the update is the repository's
@@ -115,14 +118,40 @@ def _wrap_dispatch(step: int):
         backends.dispatch = _WRAP["dispatch"]
 
 
+@contextlib.contextmanager
+def weighted(times: int):
+    """Count each FLOP and collective inside ``times`` times over, on this
+    thread (nested weights multiply): one traced step standing for a
+    loop's ``times`` trips (``models.layers.scan``). Memory is tracked as
+    it runs."""
+    outer = getattr(_LOCAL, "weight", 1)
+    _LOCAL.weight = outer * times
+    try:
+        yield
+    finally:
+        _LOCAL.weight = outer
+
+
+def live_bytes() -> int:
+    """The live bytes of the innermost ``OpCounter(track_memory=True)``
+    active on this thread, 0 without one: what a traced region keeps is
+    the difference across it (``models.layers.scan``)."""
+    for c in reversed(getattr(_LOCAL, "counters", ())):
+        if c.track_memory:
+            return c.live_bytes
+    return 0
+
+
 @dataclasses.dataclass(frozen=True)
 class Collective:
     """One collective as the HLO names it: kind, result dtype and shape,
-    and the size of the group it runs over."""
+    and the size of the group it runs over; ``times``: how many runs of
+    it the record stands for (a step traced once under ``weighted``)."""
     kind: str
     dtype: str
     shape: Tuple[int, ...]
     group: int
+    times: int = 1
 
     @property
     def nbytes(self) -> float:
@@ -131,7 +160,7 @@ class Collective:
     def cost(self) -> float:
         """Bytes moved a device: all-reduce 2x (a ring), reduce-scatter
         the result times the group (the reduced operand), others 1x."""
-        nb = self.nbytes
+        nb = self.nbytes * self.times
         if self.kind == "all-reduce":
             return 2.0 * nb
         if self.kind == "reduce-scatter" and self.group:
@@ -208,12 +237,14 @@ class OpCounter(TorchDispatchMode):
 
     def __enter__(self):
         _wrap_dispatch(+1)
+        _LOCAL.counters = getattr(_LOCAL, "counters", []) + [self]
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            _LOCAL.counters = _LOCAL.counters[:-1]
             _wrap_dispatch(-1)
 
     # -- memory ---------------------------------------------------------
@@ -246,11 +277,12 @@ class OpCounter(TorchDispatchMode):
             self._track(args, out)
         if getattr(_LOCAL, "depth", 0):
             return out
+        weight = getattr(_LOCAL, "weight", 1)
         pkt = func._overloadpacket
         name = pkt.__name__
         ns = getattr(pkt, "_qualified_op_name", "").split("::")[0]
         if name in _DOT and ns == "aten":
-            f = 2.0 * out.numel() * args[_DOT[name]].shape[-1]
+            f = 2.0 * out.numel() * args[_DOT[name]].shape[-1] * weight
             self.flops += f
             self.flops_by_op[name] = self.flops_by_op.get(name, 0.0) + f
         elif ns in _COLL_NAMESPACES and name in _COLLECTIVES:
@@ -260,7 +292,7 @@ class OpCounter(TorchDispatchMode):
             for t in res:
                 self.collectives.append(Collective(
                     kind, HLO_DTYPE.get(t.dtype, str(t.dtype)),
-                    tuple(t.shape), g))
+                    tuple(t.shape), g, weight))
         return out
 
 
@@ -303,4 +335,4 @@ def analyze_ops(counter: OpCounter):
 
 
 __all__ = ["Collective", "OpCounter", "analyze_ops", "coll_by_kind",
-           "paused", "DTYPE_BYTES", "HLO_DTYPE"]
+           "paused", "weighted", "live_bytes", "DTYPE_BYTES", "HLO_DTYPE"]

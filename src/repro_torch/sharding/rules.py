@@ -63,15 +63,17 @@ def constrain_dims(x, dim_axes):
     return x
 
 
-def constrain_batch_dim(x, dim: int):
+def constrain_batch_dim(x, dim: int, keep=()):
     """Pin dimension ``dim`` of a ``DTensor`` to the ambient batch axes
     (``set_batch_axes``), as the JAX package pins it with
     ``with_sharding_constraint``: ``Shard(dim)`` on each batch mesh axis,
     every other mesh axis replicated (a partial sum reduced, any other
-    shard gathered). ``DTensor`` has no "unconstrained" placement to leave
-    the other axes to, and its greedy propagation, left alone, turns a
-    partial sum into a shard of whatever dim is cheapest (the sequence,
-    the embedding), which later ops cannot propagate. A plain tensor, a
+    shard gathered) but where it shards one of the dims ``keep``.
+    ``DTensor`` has no "unconstrained" placement to leave the other axes
+    to, and its greedy propagation, left alone, turns a partial sum into a
+    shard of whatever dim is cheapest (the sequence, the embedding), which
+    later ops cannot propagate; ``keep`` names the dims whose shards the
+    caller takes as they come (the loss's vocabulary). A plain tensor, a
     dim the batch axes do not divide, or no ambient axes on the tensor's
     mesh: returned as it is (the JAX function's no-op without a mesh)."""
     from torch.distributed.tensor import DTensor
@@ -86,8 +88,10 @@ def constrain_batch_dim(x, dim: int):
         size *= sizes[a]
     if not axes or x.shape[dim] % size:
         return x
-    pls = tuple(Shard(dim % x.ndim) if a in axes else Replicate()
-                for a in names)
+    kept = {d % x.ndim for d in keep}
+    pls = tuple(Shard(dim % x.ndim) if a in axes
+                else pl if type(pl) is Shard and pl.dim % x.ndim in kept
+                else Replicate() for a, pl in zip(names, x.placements))
     if tuple(x.placements) == pls:
         return x
     return x.redistribute(x.device_mesh, pls)
@@ -99,6 +103,12 @@ def _shards(pl) -> bool:
     subclass in every torch)."""
     return isinstance(pl, Shard) or (type(pl).__name__ == "_StridedShard"
                                      and hasattr(pl, "dim"))
+
+
+def sharded_dims(x) -> set:
+    """The dims a ``DTensor`` shards (none for a plain tensor)."""
+    return {pl.dim % x.ndim for pl in getattr(x, "placements", ())
+            if _shards(pl)}
 
 
 def gather_dims(x, dims):
@@ -164,6 +174,33 @@ class _GatherGrad(torch.autograd.Function):
     def backward(ctx, g):
         g = gather_dims(g, ctx.dims)
         return (reduce_partial(g) if ctx.reduce else g), None, None
+
+
+class _PlaceGrad(torch.autograd.Function):
+    """Autograd identity whose backward places the gradient as the input
+    was placed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def place_grad_like(x):
+    """``x``, whose gradient (a ``DTensor``) reaches the ops before this
+    point placed as ``x`` is: where a reduction's backward hands back a
+    gradient replicated over a dim that ``x`` shards, it is sliced to the
+    shards locally before an elementwise backward would gather ``x``'s
+    operands instead. A plain tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _PlaceGrad.apply(x)
 
 
 def gather_grad_dims(x, dims, *, reduce: bool = False):

@@ -1848,7 +1848,8 @@ def test_encdec_on_the_card_matches_the_cpu(cuda):
             cache["pos"] = cache["pos"] + 8
             for t in range(4):
                 lg, cache = decode_step(model, cfg, cache, nxt[t].to(dev))
-                out += [lg, cache["k"], cache["v"]]
+                # The step wrote its cache in place: keep this step's.
+                out += [lg, cache["k"].clone(), cache["v"].clone()]
         return out
 
     worst = 0.0
