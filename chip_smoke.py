@@ -64,7 +64,8 @@ user calls, and holds every kernel against its plain torch version:
   ``fused_chain`` launches), its roofline terms beside path 3m's step
   time; and ``python -m repro_torch.launch.dryrun`` on the fake 16x16
   world of 256 ranks for full-size llama3.2-3b ``train_4k
-  --optimizer cholesky_precond`` and ``decode_32k``, traced on the host's
+  --optimizer cholesky_precond`` and ``decode_32k`` and arctic-480b
+  ``train_4k`` (its MoE expert-parallel), traced on the host's
   CPU in subprocesses started after every timed phase before them (beside
   path 3m's untimed checks) and read before the kernels are timed, each
   record printed.
@@ -2215,7 +2216,7 @@ def _encdec_on_card(torch, np, dev, seed):
 # equal, the step must take its 3 fused_chain launches, and the roofline
 # terms (roofline.analysis.analyze) stand beside path 3m's measured p50.
 # (b) The dry run itself (python -m repro_torch.launch.dryrun) on the
-# single-pod fake world of 256 ranks for two full-size cells, in
+# single-pod fake world of 256 ranks for three full-size cells, in
 # subprocesses started right after (a): they trace on the host's CPU
 # beside path 3m's untimed checks ((b) and (c)), and path 3n waits for
 # their records before the kernel phases that time anything.
@@ -2224,16 +2225,21 @@ def _encdec_on_card(torch, np, dev, seed):
 #: repairs to the model code must leave them as they were.
 TRAIN_LM_LOSSES_SEED0 = (489.9023, 404.2239)
 #: The dry-run cells of path 3n (b): the paper-technique cell the JAX
-#: dry run names, and a decode cell with its cache placed on the mesh.
+#: dry run names, a decode cell with its cache placed on the mesh, and
+#: an expert-parallel MoE training cell.
 DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "cholesky_precond"),
-                ("llama3.2-3b", "decode_32k", "adamw"))
-#: The same cells' records before the decode cache was donated and the
-#: loss reduced across vocabulary shards (H100 host, torch 2.11):
-#: collective bytes a device and ``temp_bytes``.
-DRYRUN_BEFORE = {"train_4k": (1.708e12, 49.51e9),
-                 "decode_32k": (2.85e6, 92.08e9)}
+                ("llama3.2-3b", "decode_32k", "adamw"),
+                ("arctic-480b", "train_4k", "adamw"))
+#: The same cells' records before (H100 host, torch 2.11): the llama
+#: cells' before the decode cache was donated and the loss reduced across
+#: vocabulary shards, the arctic cell's before its MoE dispatch was made
+#: expert-parallel. FLOPs a device (None: not kept), collective bytes a
+#: device and ``temp_bytes``.
+DRYRUN_BEFORE = {("llama3.2-3b", "train_4k"): (None, 1.708e12, 49.51e9),
+                 ("llama3.2-3b", "decode_32k"): (None, 2.85e6, 92.08e9),
+                 ("arctic-480b", "train_4k"): (3.88e15, 1.67e13, 387.0e9)}
 #: Seconds path 3n waits at most for (b)'s subprocesses to finish.
-DRYRUN_WAIT_S = 240
+DRYRUN_WAIT_S = 300
 
 
 def dryrun_in_background(work_dir):
@@ -2245,8 +2251,8 @@ def dryrun_in_background(work_dir):
                OMP_NUM_THREADS="1")
     runs = []
     for arch, shape, opt in DRYRUN_CELLS:
-        log = os.path.join(work_dir, f"dryrun_{shape}.log")
-        out = os.path.join(work_dir, f"dryrun_{shape}.jsonl")
+        log = os.path.join(work_dir, f"dryrun_{arch}_{shape}.log")
+        out = os.path.join(work_dir, f"dryrun_{arch}_{shape}.jsonl")
         with open(log, "w") as f:
             p = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -2285,8 +2291,11 @@ def dryrun_phase(runs):
               f"{tail[-1] if tail else ''}")
         for rec in recs:
             print(f"  record: {json.dumps(rec)}")
-            coll, temp = DRYRUN_BEFORE[shape]
+            flops, coll, temp = DRYRUN_BEFORE[(arch, shape)]
             if "error" not in rec:
+                if flops is not None:
+                    print(f"  FLOPs a device {rec['flops_per_device']:.4g} "
+                          f"(before: {flops:.4g})")
                 print(f"  collective bytes a device "
                       f"{rec['collective_bytes_per_device']:.4g} (before: "
                       f"{coll:.4g}), temp_bytes "

@@ -36,14 +36,37 @@ def attention_init(attn_cfg, d_model, dtype, device=None):
     return p
 
 
-def qkv(p, x, positions, attn_cfg):
-    """Project + RoPE. x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh)."""
+def qkv(p, x, positions, attn_cfg, *, repeat_kv=True):
+    """Project + RoPE. x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh).
+
+    On a mesh whose model axis shards the query heads but not the KV heads
+    (``repeat_kv``, the default), each rank projects only the distinct KV
+    heads its query heads read and repeats them to those heads: k/v are
+    then (B, S, H, Dh), placed as q (``rules.kv_heads_for_queries``).
+    Plain tensors: the projections as they are."""
+    x = rules.copy_to_columns(x)
     q = L.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = L.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = L.einsum("bsd,dhk->bshk", x, p["wv"])
-    q = L.rope(q, positions, theta=attn_cfg.rope_theta)
+    k, v = _kv(p, x, positions, q, attn_cfg, repeat_kv)
+    return L.rope(q, positions, theta=attn_cfg.rope_theta), k, v
+
+
+def _kv(p, src, positions, q, attn_cfg, repeat_kv=True):
+    """K (rotated at ``positions``) and V projected from ``src`` (B, S, D)
+    for the queries ``q``, their KV heads repeated to ``q``'s on a mesh
+    (``qkv``)."""
+    wk = wv = None
+    if repeat_kv:
+        wk = rules.kv_heads_for_queries(q, p["wk"])
+        wv = rules.kv_heads_for_queries(q, p["wv"])
+    k = L.einsum("bsd,dhk->bshk", src, p["wk"] if wk is None else wk)
+    v = L.einsum("bsd,dhk->bshk", src, p["wv"] if wv is None else wv)
+    # Columns split over the ranks (an MQA head): whole heads first.
+    k, v = rules.gather_dims(k, (3,)), rules.gather_dims(v, (3,))
     k = L.rope(k, positions, theta=attn_cfg.rope_theta)
-    return q, k, v
+    if wk is not None:
+        n_kv = attn_cfg.num_kv_heads
+        k, v = (rules.repeat_kv_heads(t, q, n_kv) for t in (k, v))
+    return k, v
 
 
 def _window_value(window) -> int:
@@ -68,15 +91,20 @@ def flash_attention(
     q: (B, Sq, H, Dh); k, v: (B, Skv, KV, Dh) with H % KV == 0.
     ``window``: None, an int or a scalar tensor (0/negative disables it).
     Offsets give global positions (cross-chunk prefill, right-aligned
-    decode).
+    decode). On a mesh it runs rank by rank on each rank's batch rows and
+    query heads, or its query rows where the heads cannot be sharded
+    (``rules.local_attention``).
     """
-    # On a mesh the blocks' gradients come back as strided shards of the
-    # sequence, which the projections' backward cannot merge with the
-    # batch: gather them there; and a head_dim sharded over a mesh axis
-    # would make every block's scores a partial sum to all-reduce: gather
-    # it once here (plain tensors untouched).
-    q, k, v = (rules.gather_grad_dims(rules.gather_dims(t, (3,)), (1,))
-               for t in (q, k, v))
+    return rules.local_attention(
+        lambda q, k, v, q_start=0: _flash(
+            q, k, v, causal, window, cap, q_offset + q_start, kv_offset,
+            q_chunk, kv_chunk),
+        q, (k, v), hq=2, hk=2, sq=1)
+
+
+def _flash(q, k, v, causal, window, cap, q_offset, kv_offset, q_chunk,
+           kv_chunk):
+    """``flash_attention`` on plain tensors."""
     B, Sq, H, Dh = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -90,11 +118,10 @@ def flash_attention(
     scale = L.inv_sqrt(Dh)
     window_val = _window_value(window)
 
-    qg = rules.reshape(q, (B, nq, q_chunk, KV, G, Dh)).permute(
-        1, 0, 3, 4, 2, 5)
+    qg = q.reshape(B, nq, q_chunk, KV, G, Dh).permute(1, 0, 3, 4, 2, 5)
     # qg: (nq, B, KV, G, Cq, Dh)
-    kc = rules.reshape(k, (B, nk, kv_chunk, KV, Dh)).permute(1, 0, 3, 2, 4)
-    vc = rules.reshape(v, (B, nk, kv_chunk, KV, Dh)).permute(1, 0, 3, 2, 4)
+    kc = k.reshape(B, nk, kv_chunk, KV, Dh).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(B, nk, kv_chunk, KV, Dh).permute(1, 0, 3, 2, 4)
     # kc, vc: (nk, B, KV, Ckv, Dh)
 
     outs = []
@@ -131,13 +158,6 @@ def flash_attention(
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.stack(outs)  # (nq, B, KV, G, Cq, Dh) -> (B, Sq, H, Dh)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, KV * G, Dh)
-    # On a mesh DTensor may shard a block's query rows over a free mesh
-    # axis; put back together, the sequence is then a strided shard that
-    # no later view can merge with the batch: gather it. The gradient
-    # comes back sharded on the heads (the output projection's placement),
-    # which the reshape's backward cannot split into (KV, G) groups: gather
-    # those too. Plain tensors pass untouched.
-    out = rules.gather_grad_dims(rules.gather_dims(out, (1,)), (1, 2))
     return out.to(q.dtype)
 
 
@@ -146,18 +166,17 @@ def attn_block(p, x, positions, attn_cfg, *, causal=True, window=None):
     q, k, v = qkv(p, x, positions, attn_cfg)
     o = flash_attention(q, k, v, causal=causal, window=window,
                         cap=attn_cfg.softcap)
-    return L.einsum("bshk,hkd->bsd", o, p["wo"])
+    return rules.reduce_rows(L.einsum("bshk,hkd->bsd", o, p["wo"]))
 
 
 def cross_attn_block(p, x, positions, kv_src, kv_positions, attn_cfg):
     """Cross-attention: queries from x, keys/values from kv_src (encoder)."""
+    x, kv_src = rules.copy_to_columns(x), rules.copy_to_columns(kv_src)
     q = L.einsum("bsd,dhk->bshk", x, p["wq"])
     q = L.rope(q, positions, theta=attn_cfg.rope_theta)
-    k = L.einsum("bsd,dhk->bshk", kv_src, p["wk"])
-    k = L.rope(k, kv_positions, theta=attn_cfg.rope_theta)
-    v = L.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    k, v = _kv(p, kv_src, kv_positions, q, attn_cfg)
     o = flash_attention(q, k, v, causal=False, cap=attn_cfg.softcap)
-    return L.einsum("bshk,hkd->bsd", o, p["wo"])
+    return rules.reduce_rows(L.einsum("bshk,hkd->bsd", o, p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -179,12 +198,10 @@ def decode_attn(p, x1, cache_k, cache_v, pos, attn_cfg, *, window=None,
     Scores and the weighted sum accumulate in fp32 whatever the cache's
     dtype.
     """
-    B, S_slots, KV, Dh = cache_k.shape
-    H = attn_cfg.num_heads
-    G = H // KV
-    dev, f32 = x1.device, torch.float32
+    B, S_slots = cache_k.shape[:2]
+    dev = x1.device
     pos_arr = torch.full((B, 1), 0, dtype=torch.int32, device=dev) + pos
-    q = L.einsum("bd,dhk->bhk", x1, p["wq"])[:, None]  # (B, 1, H, Dh)
+    q = _project_heads(x1, p["wq"])[:, None]  # (B, 1, H, Dh)
     q = L.rope(q, pos_arr, theta=attn_cfg.rope_theta)[:, 0]
     k1 = L.einsum("bd,dhk->bhk", x1, p["wk"])[:, None]
     k1 = L.rope(k1, pos_arr, theta=attn_cfg.rope_theta)[:, 0]
@@ -203,10 +220,79 @@ def decode_attn(p, x1, cache_k, cache_v, pos, attn_cfg, *, window=None,
         if window_val > 0:
             valid &= slot > (pos - window_val)
 
-    qg = rules.reshape(q, (B, KV, G, Dh))
+    if type(valid).__name__ == "DTensor":
+        valid = valid.full_tensor()   # replicated: no data moves
+    # On a mesh each rank attends with its own query heads, against the
+    # cache's KV heads they read (``rules.local_attention``).
+    o = rules.local_attention(
+        lambda q, ck, cv, k1, v1: _decode_core(q, ck, cv, k1[:, 0],
+                                               v1[:, 0], valid, attn_cfg),
+        q, (cache_k, cache_v, k1[:, None], v1[:, None]), hq=1, hk=2)
+    out = rules.reduce_rows(_heads_out(o.to(x1.dtype), p["wo"]))
+    return out, k1, v1
+
+
+def _spare_dim(x, w, hw):
+    """The mesh dim, if any, over which both ``x`` and the weight ``w``
+    replicate while ``w``'s heads (dim ``hw``) could not be sharded over
+    it (56 heads of arctic-480b on a 16-wide model axis), and which
+    divides the merged (H, Dh) columns; None elsewhere (plain tensors)."""
+    if type(w).__name__ != "DTensor" or type(x).__name__ != "DTensor":
+        return None
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        n = w.device_mesh.shape[i]
+        if (px.is_replicate() and pw.is_replicate() and w.shape[hw] % n
+                and (w.shape[hw] * w.shape[hw + 1]) % n == 0):
+            return i
+    return None
+
+
+def _split_dim(t, i, dim):
+    """``t`` sharded on ``dim`` over mesh dim ``i`` (it replicates there:
+    a local slice)."""
+    pls = list(t.placements)
+    pls[i] = rules.Shard(dim)
+    return t.redistribute(t.device_mesh, pls)
+
+
+def _project_heads(x, w):
+    """``x`` (B, D) @ ``w`` (D, H, Dh) -> (B, H, Dh). Where the heads
+    replicate over a mesh dim that nothing else uses (``_spare_dim``), its
+    ranks split the merged H·Dh columns and gather the product
+    (Megatron's column-parallel product over heads the mesh cannot
+    split), instead of each projecting every head."""
+    i = _spare_dim(x, w, 1)
+    if i is None:
+        return L.einsum("bd,dhk->bhk", x, w)
+    D, H, Dh = w.shape
+    y = L.mm(x, _split_dim(w.reshape(D, H * Dh), i, 1))
+    return rules.gather_dims(y, (1,)).reshape(x.shape[0], H, Dh)
+
+
+def _heads_out(o, w):
+    """``o`` (B, H, Dh) @ ``w`` (H, Dh, D) -> (B, D); over a spare mesh
+    dim (``_spare_dim``) its ranks split the merged H·Dh contraction
+    (row-parallel: a partial sum for ``rules.reduce_rows``)."""
+    i = _spare_dim(o, w, 0)
+    if i is None:
+        return L.einsum("bhk,hkd->bd", o, w)
+    H, Dh, D = w.shape
+    return L.mm(_split_dim(o.reshape(o.shape[0], H * Dh), i, 1),
+                _split_dim(w.reshape(H * Dh, D), i, 0))
+
+
+def _decode_core(q, cache_k, cache_v, k1, v1, valid, attn_cfg):
+    """``decode_attn``'s attention on plain tensors: q (B, H, Dh) against
+    the cache's slots ``valid`` and this step's k1/v1 (B, KV, Dh); fp32
+    (B, H, Dh)."""
+    B, H, Dh = q.shape
+    KV = cache_k.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    qg = q.reshape(B, KV, G, Dh)
     scale = L.inv_sqrt(Dh)
     s = L.einsum("bkgd,bskd->bkgs", qg, cache_k, out_dtype=f32) * scale
-    s_self = L.einsum("bkgd,bkd->bkg", qg, k1.reshape(B, KV, Dh),
+    s_self = L.einsum("bkgd,bkd->bkg", qg, k1,
                       out_dtype=f32)[..., None] * scale
     s = L.softcap(s, attn_cfg.softcap)
     s_self = L.softcap(s_self, attn_cfg.softcap)
@@ -216,6 +302,4 @@ def decode_attn(p, x1, cache_k, cache_v, pos, attn_cfg, *, window=None,
     o = L.einsum("bkgs,bskd->bkgd", w[..., :-1].to(cache_v.dtype), cache_v,
                  out_dtype=f32)
     o = o + w[..., -1:].to(f32) * v1.reshape(B, KV, 1, Dh).to(f32)
-    o = o.reshape(B, H, Dh).to(x1.dtype)
-    out = L.einsum("bhk,hkd->bd", o, p["wo"])
-    return out, k1.reshape(B, KV, Dh), v1.reshape(B, KV, Dh)
+    return o.reshape(B, H, Dh)

@@ -129,9 +129,11 @@ def encode(model, cfg, src_embeds):
 
 def _dec_layer(lp, x, positions, enc_out, kv_positions, cfg, collect_cache):
     h = L.apply_norm(cfg.norm, lp["ln1"], x)
-    q, k, v = A.qkv(lp["self_attn"], h, positions, cfg.attn)
+    q, k, v = A.qkv(lp["self_attn"], h, positions, cfg.attn,
+                    repeat_kv=not collect_cache)
     o = A.flash_attention(q, k, v, causal=True)
-    x = x + L.einsum("bshk,hkd->bsd", o, lp["self_attn"]["wo"])
+    x = x + rules.reduce_rows(L.einsum("bshk,hkd->bsd", o,
+                                       lp["self_attn"]["wo"]))
     h = L.apply_norm(cfg.norm, lp["ln_x"], x)
     x = x + A.cross_attn_block(lp["cross_attn"], h, positions, enc_out,
                                kv_positions, cfg.attn)
@@ -146,6 +148,7 @@ def _dec_layer(lp, x, positions, enc_out, kv_positions, cfg, collect_cache):
 
 
 def _vocab(model, cfg, x):
+    x = rules.copy_to_columns(x)
     if cfg.tie_embeddings:
         logits = L.einsum("...d,vd->...v", x, model["embed"]["tokens"])
     else:
@@ -214,6 +217,18 @@ def init_encdec_cache(cfg, batch, slots, src_len, dtype=torch.bfloat16, *,
     }
 
 
+def _cross_core(q, xk, xv, scale):
+    """One query (B, H, Dh) against the encoder's K/V (B, Ss, KV, Dh), on
+    plain tensors."""
+    B, H, Dh = q.shape
+    KV = xk.shape[2]
+    qg = q.reshape(B, KV, H // KV, Dh)
+    s = L.einsum("bkgd,bskd->bkgs", qg, xk, out_dtype=torch.float32) * scale
+    w = torch.softmax(s, dim=-1)
+    o = L.einsum("bkgs,bskd->bkgd", w.to(xv.dtype), xv)
+    return o.reshape(B, H, Dh)
+
+
 def encdec_decode_step(model, cfg, cache, tokens):
     """One decoder step against the self-K/V cache and the precomputed
     cross-K/V. tokens: (B,) int. Returns (logits fp32 (B, V), the cache):
@@ -230,7 +245,6 @@ def encdec_decode_step(model, cfg, cache, tokens):
     write_at = torch.clamp(pos, max=slots - 1)
     a = cfg.attn
     scale = L.inv_sqrt(a.head_dim)
-    KV, G = a.num_kv_heads, a.num_heads // a.num_kv_heads
     pos_arr = torch.full((B, 1), 0, dtype=torch.int32, device=x.device) + pos
     for i, lp in enumerate(model.dec_layers):
         xk, xv = cache["xk"][i], cache["xv"][i]
@@ -242,13 +256,13 @@ def encdec_decode_step(model, cfg, cache, tokens):
         h = L.apply_norm(cfg.norm, lp["ln_x"], x)
         q = L.einsum("bd,dhk->bhk", h, lp["cross_attn"]["wq"])
         q = L.rope(q[:, None], pos_arr, theta=a.rope_theta)[:, 0]
-        qg = rules.reshape(q, (B, KV, G, a.head_dim))
-        s = L.einsum("bkgd,bskd->bkgs", qg, xk,
-                     out_dtype=torch.float32) * scale
-        w = torch.softmax(s, dim=-1)
-        o = L.einsum("bkgs,bskd->bkgd", w.to(xv.dtype), xv)
-        o = o.reshape(B, a.num_heads, a.head_dim)
-        x = x + L.einsum("bhk,hkd->bd", o, lp["cross_attn"]["wo"])
+        # On a mesh each rank attends with its own query heads
+        # (``rules.local_attention``).
+        o = rules.local_attention(
+            lambda q, xk, xv: _cross_core(q, xk, xv, scale), q, (xk, xv),
+            hq=1, hk=2)
+        x = x + rules.reduce_rows(L.einsum("bhk,hkd->bd", o,
+                                           lp["cross_attn"]["wo"]))
         h = L.apply_norm(cfg.norm, lp["ln2"], x)
         x = x + L.mlp(lp["mlp"], h, activation=cfg.activation)
         _write_slot(cache["k"][i], k1, write_at)

@@ -149,9 +149,37 @@ def stacked_rows(nodes, stacked: dict) -> bool:
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul``."""
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul``; a
+    ``DTensor`` weight ``b`` (2-D) first gathers ``weight_gathers``'
+    dims."""
     dt = torch.promote_types(a.dtype, b.dtype)
+    if type(b).__name__ == "DTensor" and b.ndim == 2 and a.ndim >= 1:
+        from repro_torch.sharding import rules
+
+        lead = "".join(chr(ord("A") + i) for i in range(a.ndim - 1))
+        b = rules.gather_dims(b, weight_gathers(lead + "k", "kn", a, b))
     return torch.matmul(a.to(dt), b.to(dt))
+
+
+def weight_gathers(ta, tw, a, w) -> set:
+    """The dims of the weight ``w`` (einsum letters ``tw``) that a product
+    with the activation ``a`` (letters ``ta``) gathers first: each that
+    a mesh dim shards while that mesh dim shards a dim of ``a`` of another
+    letter (an fsdp-sharded ``embed`` against batch-sharded rows), as XLA
+    gathers an fsdp weight. ``DTensor`` would otherwise move the
+    activation to meet the weight, leaving a partial sum of the whole
+    batch. A shard on a letter both share (experts against experts) stays."""
+    from repro_torch.sharding import rules
+
+    if type(w).__name__ != "DTensor" or type(a).__name__ != "DTensor":
+        return set()
+    out = set()
+    for pa, pw in zip(a.placements, w.placements):
+        if rules._shards(pa) and rules._shards(pw):
+            dw = pw.dim % w.ndim
+            if tw[dw] != ta[pa.dim % a.ndim]:
+                out.add(dw)
+    return out
 
 
 def cat(xs, dim: int) -> torch.Tensor:
@@ -243,6 +271,10 @@ def _dtensor_einsum(eq, *xs):
     ins, out = eq.split("->")
     terms = ins.split(",")
     if len(terms) == 2:
+        # The second operand is the weight: it gathers the dims that would
+        # meet the activation's shards of other dims (fsdp).
+        full, _ = _expand_ellipsis(eq, xs)
+        xs = (xs[0], rules.gather_dims(xs[1], weight_gathers(*full, *xs)))
         a, b = terms
         if len(b) == 3 and b[0] == a[-1] and out == a[:-1] + b[1:]:
             x, w = xs
@@ -500,8 +532,13 @@ def embed_lookup(p, tokens):
         # The rows of a sharded vocabulary come back as a masked partial
         # sum, which later adds cannot take: reduce it here; and reduce the
         # gradient's partial sums before it reaches that reduction's
-        # backward (no torch redistributes a sum into a masked sum).
-        y = rules.reduce_partial(F.embedding(tokens.long(), p["tokens"]))
+        # backward (no torch redistributes a sum into a masked sum). A
+        # table sharded on its embedding dim where the tokens shard their
+        # rows gathers that dim first (fsdp), so the rows stay sharded.
+        table = p["tokens"]
+        table = rules.gather_dims(table, weight_gathers("bs"[-tokens.ndim:],
+                                                        "vd", tokens, table))
+        y = rules.reduce_partial(F.embedding(tokens.long(), table))
         return rules.gather_grad_dims(y, (), reduce=True)
     return p["tokens"][tokens.long()]
 
@@ -531,11 +568,18 @@ def mlp_init(d, d_ff, dtype, *, activation="swiglu", gated=True,
 
 
 def mlp(p, x, *, activation="swiglu"):
+    """The gated (or plain) MLP. On a mesh its input's gradient is reduced
+    once (``rules.copy_to_columns``) and the down projection's partial sum
+    once (``rules.reduce_rows``): Megatron's pair around the column- and
+    the row-parallel products."""
+    from repro_torch.sharding import rules
+
+    x = rules.copy_to_columns(x)
     if "wg" in p:
         h = _act(activation, mm(x, p["wg"])) * mm(x, p["wi"])
     else:
         h = _act(activation, mm(x, p["wi"]))
-    return mm(h, p["wo"])
+    return rules.reduce_rows(mm(h, p["wo"]))
 
 
 # ---------------------------------------------------------------------------

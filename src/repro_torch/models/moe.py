@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN, PyTorch port: top-k routing, scatter/gather
-dispatch.
+dispatch, expert-parallel on a mesh.
 
 Dispatch layout: every (token, choice) is assigned a slot in a capacity-
 padded expert-input buffer of shape (E*C + 1, D) (the extra row absorbs
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.models import layers as L
 from repro_torch.sharding import rules
@@ -49,54 +50,46 @@ def moe_block(p, x, moe_cfg, *, activation="swiglu"):
     e = moe_cfg.num_experts
     k = moe_cfg.top_k
     cap = max(int(moe_cfg.capacity_factor * T * k / e), 1)
+    mesh = type(x).__name__ == "DTensor"
 
-    # On a mesh the tokens' gradient comes back summed over two uses and
-    # scattered over every mesh axis, which the reshape's backward
-    # mis-sizes: gather and reduce it first (plain tensors: untouched).
-    xt = rules.gather_grad_dims(x.reshape(T, D), (0,), reduce=True)
-    logits = L.mm(xt.float(), p["router"])  # (T, E) fp32 routing
+    xt = x.reshape(T, D)
+    router = p["router"]
+    if mesh:
+        # The tokens sharded on their batch rows only (partial sums
+        # reduced, any other shard gathered), the router whole: routing is
+        # then each rank's own rows.
+        xt = rules.rows_only(xt)
+        router = rules.gather_dims(router, (0, 1))
+    logits = L.mm(xt.float(), router)  # (T, E) fp32 routing
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k(probs, k)  # (T, k)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
-
-    # Slot assignment: position within the chosen expert via masked cumsum.
-    flat_e = expert_idx.reshape(T * k)
-    onehot = F.one_hot(flat_e, e).to(torch.int32)  # (T*k, E)
-    pos = torch.sum(torch.cumsum(onehot, dim=0) * onehot, dim=-1) - 1
-    keep = pos < cap
-    slot = torch.where(keep, flat_e * cap + pos,
-                       torch.full_like(flat_e, e * cap))  # drop row at e*cap
-
-    # Dispatch: scatter token copies into the expert-input buffer.
-    tok = torch.arange(T * k, device=x.device) // k
-    xs = xt[tok]  # (T*k, D)
-    buf = torch.zeros((e * cap + 1, D), dtype=x.dtype, device=x.device)
-    if type(xs).__name__ == "DTensor":
-        # On a mesh: the token copies and their slots whole on every rank,
-        # the scatter on those local tensors (a scatter of global slot
-        # indices from token shards has no DTensor placement in every
-        # torch), the buffer replicated.
-        buf = rules.add_rows_replicated(buf, slot, xs)
-    else:
-        buf.index_add_(0, slot, xs)
-    xe = buf[: e * cap].reshape(e, cap, D)
-
-    # Expert FFNs.
     act = F.silu if activation in ("swiglu", "silu") else (
         lambda t: F.gelu(t, approximate="tanh"))
-    h = act(L.einsum("ecd,edf->ecf", xe, p["wg"])) * L.einsum(
-        "ecd,edf->ecf", xe, p["wi"])
-    ye = L.einsum("ecf,efd->ecd", h, p["wo"])  # (E, C, D)
 
-    # Combine: gather back, weight by gates, sum the k choices.
-    ye_flat = torch.cat([ye.reshape(e * cap, D),
-                         torch.zeros((1, D), dtype=ye.dtype,
-                                     device=ye.device)], dim=0)
-    # On a mesh the slots whole: no torch places an index by a tensor
-    # sharded over two mesh axes (pod and data) on one dim.
-    y = ye_flat[rules.gather_dims(slot, (0,))].float()
-    y = y * gate_vals.reshape(T * k, 1)
-    out = torch.sum(y.reshape(T, k, D), dim=1).to(x.dtype).reshape(B, S, D)
+    if mesh:
+        out = _dispatch_on_mesh(p, xt, expert_idx, gate_vals, e, k, cap,
+                                act).reshape(B, S, D)
+    else:
+        flat_e = expert_idx.reshape(T * k)
+        slot, _ = _slots(flat_e, e, cap)
+
+        # Dispatch: scatter token copies into the expert-input buffer.
+        tok = torch.arange(T * k, device=x.device) // k
+        xs = xt[tok]  # (T*k, D)
+        buf = torch.zeros((e * cap + 1, D), dtype=x.dtype, device=x.device)
+        buf.index_add_(0, slot, xs)
+        xe = buf[: e * cap].reshape(e, cap, D)
+        ye = _experts(p, xe, act)  # (E, C, D)
+
+        # Combine: gather back, weight by gates, sum the k choices.
+        ye_flat = torch.cat([ye.reshape(e * cap, D),
+                             torch.zeros((1, D), dtype=ye.dtype,
+                                         device=ye.device)], dim=0)
+        y = ye_flat[slot].float()
+        y = y * gate_vals.reshape(T * k, 1)
+        out = torch.sum(y.reshape(T, k, D), dim=1).to(x.dtype).reshape(
+            B, S, D)
 
     if "dense" in p:
         out = out + L.mlp(p["dense"], x, activation=activation)
@@ -111,3 +104,127 @@ def moe_block(p, x, moe_cfg, *, activation="swiglu"):
             torch.square(torch.logsumexp(logits, dim=-1))),
     }
     return out, aux
+
+
+def _slots(flat_e, e, cap, lower=None):
+    """(slot, keep) of each token copy (expert ``flat_e``): its position
+    within its expert by a masked cumsum over the copies in order, kept
+    below ``cap``; a dropped copy's slot is the drop row ``e * cap``.
+    ``lower(counts)``: the copies each expert took in the token shards
+    before this one, given this shard's counts (E,) (a mesh)."""
+    onehot = F.one_hot(flat_e, e).to(torch.int32)  # (n, E)
+    pos = torch.sum(torch.cumsum(onehot, dim=0) * onehot, dim=-1) - 1
+    if lower is not None:
+        pos = pos + lower(torch.sum(onehot, dim=0))[flat_e]
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos,
+                       torch.full_like(flat_e, e * cap))
+    return slot, keep
+
+
+def _experts(p, xe, act, weights=None):
+    """The expert FFNs on the expert-input buffer (E, C, D). On a mesh the
+    gate and up products' partial sums (an ``embed`` dim sharded against
+    replicated rows) are reduced before the activation."""
+    wg, wi, wo = weights or (p["wg"], p["wi"], p["wo"])
+    h = act(rules.reduce_partial(L.einsum("ecd,edf->ecf", xe, wg))) * \
+        rules.reduce_partial(L.einsum("ecd,edf->ecf", xe, wi))
+    return L.einsum("ecf,efd->ecd", h, wo)
+
+
+def _dispatch_on_mesh(p, xt, expert_idx, gate_vals, e, k, cap, act):
+    """The routed experts of ``moe_block`` on a mesh, expert-parallel.
+
+    Each rank routes its own token rows (``xt``, (T, D) sharded on its rows
+    over the batch's mesh dims): a copy's slot is the reference's, its
+    position within its expert counted over the whole batch, the copies of
+    the lower token shards first (an all-gather of each shard's E counts),
+    so the same routing drops the same copies. The (E, C, D) expert-input
+    buffer is laid out over the mesh (``_expert_layout``): the experts
+    where their weights shard them (EP over the model axis), the capacity
+    rows over the token shards' mesh dims where they divide C. The tokens
+    and the copies' slots and gates are gathered whole (an all-gather of
+    T rows, as Megatron's all-gather token dispatcher does); each rank
+    reads the tokens of its own block of slots and runs the expert GEMMs
+    on them, the weights' ``embed`` dim gathered (fsdp) over the mesh dims
+    that shard the rows; over a token mesh dim that does not divide C (a
+    decode step's few rows) the rows are replicated and the ``embed`` dim
+    stays sharded, each rank contracting its share of it. Each rank then
+    adds its rows' outputs, weighted by their gates, into the rows of
+    their tokens (fp32, as the reference sums the k choices), and the sum
+    over the ranks is reduce-scattered back to the token shards."""
+    mesh = xt.device_mesh
+    T, D = xt.shape
+    T_loc = xt.to_local().shape[0]
+    flat_e = expert_idx.to_local().reshape(T_loc * k)
+    shard, _ = rules.shard_index(mesh, xt.placements, 0)
+    slot, _ = _slots(flat_e, e, cap, lambda counts: torch.sum(
+        rules.all_gather_rows(counts, xt, 0)[:shard], dim=0))
+
+    want = _expert_layout(p["wi"], xt, cap)
+    split = {i for i, pl in enumerate(want) if type(pl) is Shard}
+    e0, ne = rules.shard_index(mesh, want, 0)
+    c0, nc = rules.shard_index(mesh, want, 1)
+    E_loc, C_loc = e // ne, cap // nc
+    dev = slot.device
+    # The copy that fills each slot of this rank's block (T * k: none).
+    slots_all = rules.all_gather_rows(slot, xt, 0).reshape(T * k)
+    filled = torch.full((e * cap + 1,), T * k, dtype=slots_all.dtype,
+                        device=dev).scatter(0, slots_all, torch.arange(
+                            T * k, dtype=slots_all.dtype, device=dev))
+    mine = ((e0 * E_loc + torch.arange(E_loc, device=dev))[:, None] * cap
+            + c0 * C_loc + torch.arange(C_loc, device=dev)[None, :])
+    copy = filled[mine.reshape(-1)]                     # (E_loc * C_loc,)
+
+    x_all = rules.whole_rows(xt, 0, split)              # (T, D)
+    x_pad = torch.cat([x_all, x_all.new_zeros((1, D))])
+    xe = rules.from_local(
+        x_pad[copy // k].reshape(E_loc, C_loc, D), mesh, want)
+    rows = {i for i, pl in enumerate(want) if pl == Shard(1)}
+    weights = (rules.gather_dims(p["wg"], (1,), rows),
+               rules.gather_dims(p["wi"], (1,), rows),
+               rules.gather_dims(p["wo"], (2,), rows))
+    ye = _experts(p, xe, act, weights)                  # (E, C, D)
+    block = [want[i] if i in split else pl
+             for i, pl in enumerate(ye.placements)]
+    if block != list(ye.placements):
+        ye = ye.redistribute(mesh, block)
+
+    # Each rank's sum: partial over the mesh dims that split the rows or
+    # the experts' contraction, its D sharded where ye's is.
+    pls = [Partial() if i in split or pl.is_partial()
+           else Shard(1) if type(pl) is Shard and pl.dim == 2
+           else Replicate() for i, pl in enumerate(ye.placements)]
+    g_all = rules.whole_rows(gate_vals, 0, {
+        i for i, pl in enumerate(pls) if not pl.is_replicate()})
+    g_pad = torch.cat([g_all.reshape(T * k), g_all.new_zeros((1,))])
+    ye_loc = ye.to_local()
+    y = ye_loc.reshape(E_loc * C_loc, -1).float() * g_pad[copy][:, None]
+    y = torch.zeros((T + 1, y.shape[1]), dtype=y.dtype,
+                    device=dev).index_add(0, copy // k, y)[:T]
+    out = rules.sum_into(y, mesh, pls, xt.placements)
+    return out.to(xt.dtype)
+
+
+def _expert_layout(w, xt, cap):
+    """Placements of the expert-input buffer (E, C, D): the experts
+    sharded where the expert weights ``w`` (E, D, F) shard them, the
+    capacity rows over every mesh dim that shards the tokens where their
+    product divides C (else over none: a weight's ``embed`` dim split over
+    the pod and the data dims is gathered over both or neither), every
+    other mesh dim replicated."""
+    mesh = xt.device_mesh
+    tokens = [i for i, pl in enumerate(xt.placements)
+              if type(pl) is Shard and pl.dim == 0]
+    split = 1
+    for i in tokens:
+        split *= mesh.shape[i]
+    want = []
+    for i, pw in enumerate(w.placements):
+        if type(pw) is Shard and pw.dim == 0:
+            want.append(Shard(0))
+        elif i in tokens and cap % split == 0:
+            want.append(Shard(1))
+        else:
+            want.append(Replicate())
+    return want

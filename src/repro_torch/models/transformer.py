@@ -266,10 +266,11 @@ def _layer_fwd(lp, x, positions, cfg, window, collect_cache: bool):
     cache = None
     if fam in ("dense", "vlm", "moe"):
         h = L.apply_norm(cfg.norm, lp["ln1"], x)
-        q, k, v = A.qkv(lp["attn"], h, positions, cfg.attn)
+        q, k, v = A.qkv(lp["attn"], h, positions, cfg.attn,
+                        repeat_kv=not collect_cache)
         o = A.flash_attention(q, k, v, causal=True, window=window,
                               cap=cfg.attn.softcap)
-        y = L.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
+        y = rules.reduce_rows(L.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"]))
         if cfg.post_norm:
             y = L.apply_norm(cfg.norm, lp["ln1_post"], y)
         x = x + y
@@ -379,6 +380,9 @@ def forward_lm(model, cfg, tokens, *, embeds=None, collect_cache=False,
 
 
 def project_logits(model, cfg, x):
+    # The vocabulary's shards make the gradient of x a partial sum over
+    # them: reduce it here, once (plain tensors untouched).
+    x = rules.copy_to_columns(x)
     if cfg.tie_embeddings:
         w = model["embed"]["tokens"]
         if 1 in rules.sharded_dims(w):

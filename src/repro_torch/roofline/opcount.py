@@ -19,7 +19,10 @@ for this process's device:
 * **collectives**, one record each (HLO kind, HLO dtype, result shape,
   group size), costed as ``analysis.collective_stats`` costs HLO
   collectives: all-reduce 2x the buffer (a ring), reduce-scatter the
-  result times the group (the operand), every other kind 1x.
+  result times the group (the operand), every other kind 1x. A
+  ``DTensor`` shard-to-shard redistribute is one all-to-all of the local
+  shard, as the HLO has it, also on a CPU mesh, where torch runs it as
+  an all-gather and a chunk.
 
 Local work, never global. A ``DTensor`` operation is handed back
 (``NotImplemented``), so ``DTensor`` runs it and desugars it into
@@ -99,9 +102,24 @@ def paused():
         _LOCAL.depth -= 1
 
 
+def _alltoall_modules():
+    """The modules of this torch that hold ``DTensor``'s shard-to-shard
+    exchange, ``shard_dim_alltoall`` (``placement_types`` calls it by the
+    name it imported)."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    return [m for m in (_collective_utils, placement_types)
+            if hasattr(m, "shard_dim_alltoall")]
+
+
 def _wrap_dispatch(step: int):
-    """Wrap ``core.backends.dispatch`` in ``paused`` while any counter is
-    active (``step`` +1 on entry, -1 on exit)."""
+    """While any counter is active (``step`` +1 on entry, -1 on exit):
+    wrap ``core.backends.dispatch`` in ``paused``, and ``DTensor``'s
+    ``shard_dim_alltoall`` so that a shard-to-shard redistribute on a CPU
+    mesh, which torch runs as an all-gather and a chunk (no CPU group has
+    an all-to-all), is recorded as the one all-to-all it stands for, of
+    the local shard it returns, and its all-gather not at all. On a CUDA
+    mesh it is left alone: NCCL runs the all-to-all itself."""
     from repro_torch.core import backends
 
     if step > 0 and _WRAP["depth"] == 0:
@@ -113,9 +131,39 @@ def _wrap_dispatch(step: int):
                 return orig(*args, **kwargs)
 
         backends.dispatch = dispatch
+        mods = _alltoall_modules()
+        _WRAP["alltoall"] = [(m, m.shard_dim_alltoall) for m in mods]
+        if mods:
+            a2a = mods[0].shard_dim_alltoall
+
+            @functools.wraps(a2a)
+            def shard_dim_alltoall(input, gather_dim, shard_dim, mesh,
+                                   mesh_dim):
+                if mesh.device_type != "cpu":
+                    return a2a(input, gather_dim, shard_dim, mesh, mesh_dim)
+                with paused():
+                    out = a2a(input, gather_dim, shard_dim, mesh, mesh_dim)
+                _record_all_to_all(out, mesh.size(mesh_dim))
+                return out
+
+            for m in mods:
+                m.shard_dim_alltoall = shard_dim_alltoall
     _WRAP["depth"] += step
     if step < 0 and _WRAP["depth"] == 0:
         backends.dispatch = _WRAP["dispatch"]
+        for m, fn in _WRAP.pop("alltoall", []):
+            m.shard_dim_alltoall = fn
+
+
+def _record_all_to_all(out, group: int) -> None:
+    """One all-to-all of ``out`` (the local shard it returns) into this
+    thread's innermost counter, unless paused."""
+    counters = getattr(_LOCAL, "counters", ())
+    if not counters or getattr(_LOCAL, "depth", 0) or _is_fake(out):
+        return
+    counters[-1].collectives.append(Collective(
+        "all-to-all", HLO_DTYPE.get(out.dtype, str(out.dtype)),
+        tuple(out.shape), group, getattr(_LOCAL, "weight", 1)))
 
 
 @contextlib.contextmanager

@@ -32,6 +32,16 @@ ambient batch axes, every other mesh axis replicated) and returns a plain
 tensor unchanged, as the JAX function does without a mesh in context;
 ``gather_dims`` places an operand before a reshape ``DTensor`` cannot
 propagate through a sharded dim.
+
+The model code places its model-parallel products itself, where
+``DTensor`` would place them op by op: each row-parallel output is
+all-reduced once (``reduce_rows``) and the input gradient of the
+column-parallel products once (``copy_to_columns``); attention runs rank
+by rank on local tensors (``local_attention``, with
+``kv_heads_for_queries`` / ``repeat_kv_heads`` for KV heads the model axis
+does not divide); the MoE's expert-parallel dispatch gathers rows
+(``all_gather_rows``, ``whole_rows``) and sums its partial outputs into
+the token shards (``sum_into``).
 """
 from __future__ import annotations
 
@@ -111,20 +121,22 @@ def sharded_dims(x) -> set:
             if _shards(pl)}
 
 
-def gather_dims(x, dims):
+def gather_dims(x, dims, mesh_dims=None):
     """``x`` with none of ``dims`` sharded: a ``DTensor`` sharded on one
     of them (``Shard`` or a strided shard left by a reshape) is
-    redistributed to replicate over those mesh dims, every other placement
-    kept; a plain tensor is returned as it is. The model code places its
-    operands so before a reshape that ``DTensor`` cannot propagate through
-    a sharded dim (splitting the sequence into attention blocks)."""
+    redistributed to replicate over those mesh dims (only over
+    ``mesh_dims`` where given), every other placement kept; a plain
+    tensor is returned as it is. The model code places its operands so
+    before a reshape that ``DTensor`` cannot propagate through a sharded
+    dim (splitting the sequence into attention blocks)."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x
     dims = {d % x.ndim for d in dims}
-    pls = [Replicate() if _shards(pl) and pl.dim in dims else pl
-           for pl in x.placements]
+    pls = [Replicate() if _shards(pl) and pl.dim in dims
+           and (mesh_dims is None or i in mesh_dims) else pl
+           for i, pl in enumerate(x.placements)]
     if pls == list(x.placements):
         return x
     return x.redistribute(x.device_mesh, pls)
@@ -143,22 +155,317 @@ def reduce_partial(x):
     return x.redistribute(x.device_mesh, pls)
 
 
-def add_rows_replicated(buf, index, src):
-    """``buf.index_add(0, index, src)`` for ``DTensor`` ``index`` / ``src``
-    (``buf`` plain): both gathered whole and reduced, the add run on the
-    local tensors, the result a replicated ``DTensor`` on their mesh
-    (differentiable through ``to_local`` / ``from_local``)."""
+class _ReduceRows(torch.autograd.Function):
+    """Megatron's conjugate ``g``: the forward all-reduces the partial
+    sums, the backward hands the (replicated) gradient back as it is, each
+    summand's gradient being the sum's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return reduce_partial(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def reduce_rows(y):
+    """The output of a row-parallel product (``wo`` of an attention or an
+    MLP: its contraction sharded over the model axis, so a ``DTensor``
+    ``Partial`` sum) all-reduced once, here, and no later op left to place
+    the sum; its backward is the identity (``_ReduceRows``). Its partner
+    at the input of the column-parallel products is ``copy_to_columns``.
+    A plain tensor, or one with no partial sum, is returned as it is."""
     from torch.distributed.tensor import DTensor
 
-    def whole(t):
-        return reduce_partial(gather_dims(t, range(t.ndim)))
+    if not isinstance(y, DTensor) or not any(
+            pl.is_partial() for pl in y.placements):
+        return y
+    if not (torch.is_grad_enabled() and y.requires_grad):
+        return reduce_partial(y)
+    return _ReduceRows.apply(y)
 
-    index, src = whole(index), whole(src)
-    mesh = src.device_mesh
-    out = buf.to(src.to_local().device).index_add(
-        0, index.to_local(), src.to_local())
-    return DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim,
-                              run_check=False)
+
+def copy_to_columns(x):
+    """``x``, the input of column-parallel products (the q/k/v projections,
+    an MLP's gate and up products), as it is; in the backward the partial
+    sums the products' input gradients leave over the model axis are
+    all-reduced once, here (Megatron's conjugate ``f``: forward identity,
+    backward all-reduce; ``_GatherGrad``). A plain tensor is returned as
+    it is."""
+    return gather_grad_dims(x, (), reduce=True)
+
+
+def _global_shape(local, mesh, placements):
+    shape = list(local.shape)
+    for n, pl in zip(mesh.shape, placements):
+        if isinstance(pl, Shard):
+            shape[pl.dim % len(shape)] *= n
+    return torch.Size(shape)
+
+
+def from_local(local, mesh, placements):
+    """``local`` (even shards) as a ``DTensor`` with ``placements``: no
+    check, no collective."""
+    from torch.distributed.tensor import DTensor
+
+    local = local.contiguous()
+    shape = _global_shape(local, mesh, placements)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, list(placements), run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _head_plan(q, hq, n_kv):
+    """Where ``q``'s dim ``hq`` (H query heads reading ``n_kv`` KV heads,
+    query head h reading h // (H // n_kv)) is ``Shard`` over one mesh dim
+    that the KV heads do not divide: (that mesh dim, its size, the first
+    KV head this rank's query heads read, the number of distinct KV heads
+    a rank takes, the local query heads' indices into them or None where
+    they fall in equal consecutive groups). None elsewhere."""
+    H = q.shape[hq]
+    dims = [i for i, pl in enumerate(q.placements)
+            if isinstance(pl, Shard) and type(pl) is Shard
+            and pl.dim % q.ndim == hq % q.ndim]
+    if len(dims) != 1:
+        return None
+    i = dims[0]
+    n = q.device_mesh.shape[i]
+    if H % n or n_kv % n == 0 or H % n_kv:
+        return None
+    G, H_loc = H // n_kv, H // n
+    first = lambda c: (c * H_loc) // G
+    n_d = max((c * H_loc + H_loc - 1) // G - first(c) + 1 for c in range(n))
+    c = q.device_mesh.get_local_rank(i)
+    lo = min(first(c), n_kv - n_d)
+    idx = [(c * H_loc + j) // G - lo for j in range(H_loc)]
+    grouped = H_loc % n_d == 0 and idx == [j // (H_loc // n_d)
+                                           for j in range(H_loc)]
+    return i, n, lo, n_d, (None if grouped else idx)
+
+
+def kv_heads_for_queries(q, w, hq=2):
+    """The KV heads' projection weight ``w`` (D, KV, Dh), KV heads
+    replicated, for queries ``q`` whose H heads (dim ``hq``) are sharded
+    over a mesh dim that the KV heads do not divide (2 KV heads of reduced
+    llama3.2-3b on a 4-wide model axis, 8 of gemma2-9b on 16): a
+    ``DTensor`` (D, n·n_d, Dh) sharded on its heads over that dim, rank c
+    holding the n_d distinct KV heads its own query heads read, sliced
+    from its replica of ``w`` (no data moves; the gradient is a partial
+    sum over the dim, summed into the replicated weight). Project with it,
+    then ``repeat_kv_heads`` repeats the projected heads to the query
+    heads. Where every rank reads every KV head (the one MQA head of
+    granite-20b), the ranks split each head's columns instead (``w``
+    sharded on its dim 2, a local slice): gather the projection's last dim
+    before its RoPE. None where it does not apply (a plain tensor, KV
+    heads that divide, query heads that do not): project with ``w``
+    itself."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if not (isinstance(q, DTensor) and isinstance(w, DTensor)):
+        return None
+    plan = _head_plan(q, hq, w.shape[1])
+    if plan is None or not w.placements[plan[0]].is_replicate():
+        return None
+    i, n, lo, n_d, _ = plan
+    if n_d == w.shape[1] and w.shape[2] % n == 0:
+        pls = [Shard(2) if j == i else pl for j, pl in enumerate(w.placements)]
+        return w.redistribute(w.device_mesh, pls)
+    grad_pls = [Partial() if j == i else pl
+                for j, pl in enumerate(w.placements)]
+    local = w.to_local(grad_placements=grad_pls).narrow(1, lo, n_d)
+    pls = [Shard(1) if j == i else pl for j, pl in enumerate(w.placements)]
+    return from_local(local, w.device_mesh, pls)
+
+
+def repeat_kv_heads(k, q, n_kv, hk=2):
+    """``k`` projected with ``kv_heads_for_queries`` (its dim ``hk`` the
+    n·n_d distinct heads of the ranks), each rank's heads repeated to its
+    own query heads: a ``DTensor`` of ``q``'s H heads on dim ``hk``,
+    sharded as ``q``'s (query head h holding KV head h // (H // n_kv)), so
+    that attention runs as multi-head attention on each rank's heads. Its
+    gradient sums the repeats. A ``k`` that holds every KV head on every
+    rank (their columns split and gathered) is repeated the same way, its
+    gradient a partial sum over the dim."""
+    from torch.distributed.tensor import Partial
+
+    i, n, lo, n_d, idx = _head_plan(q, hk, n_kv)
+    H_loc = q.shape[hk] // n
+    pls = list(k.placements)
+    if pls[i].is_replicate():
+        local = k.to_local(grad_placements=[
+            Partial() if j == i else pl for j, pl in enumerate(pls)])
+        pls[i] = Shard(hk % k.ndim)
+    else:
+        local = k.to_local()
+    if idx is None:
+        local = local.repeat_interleave(H_loc // n_d, dim=hk)
+    else:
+        local = local.index_select(hk, torch.tensor(idx, device=local.device))
+    return from_local(local, k.device_mesh, pls)
+
+
+def local_attention(fn, q, kvs, *, hq, hk, bq=0, bk=0, sq=None):
+    """``fn(q, *kvs)``, an attention that is independent across batch rows
+    (dim ``bq`` of ``q``, ``bk`` of each of ``kvs``) and query heads (dim
+    ``hq`` of ``q``: H heads reading the KV heads of dim ``hk`` of
+    ``kvs`` in groups), run on a mesh rank by rank on the rank's own rows
+    and query heads, as the JAX package's attention runs once XLA has
+    placed it: ``DTensor`` places no op of it. ``q`` keeps its shards of
+    batch and heads (every other dim gathered, partial sums reduced); each
+    of ``kvs`` is placed to match (a ``Replicate`` -> ``Shard`` is a local
+    slice), and where its KV heads do not divide the mesh dim that shards
+    the query heads each rank slices the KV heads its query heads read
+    (their gradient a partial sum over that dim). The result, of ``q``'s
+    leading dims, is placed as ``q``. Plain tensors: ``fn(q, *kvs)``.
+
+    ``sq``: ``q``'s query-row dim, for an attention whose rows are also
+    independent (``fn(q, *kvs, q_start=r)`` takes rows from row r on).
+    Where the query heads cannot be sharded over a mesh dim that nothing
+    of ``q`` uses (56 heads of arctic-480b or 24 of llama3.2-3b on a
+    16-wide model axis), each rank of that dim takes its share of the
+    query rows against the whole K/V (their gradient a partial sum over
+    that dim) instead of repeating every row's attention, and the rows
+    are gathered after."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if not isinstance(q, DTensor):
+        return fn(q, *kvs)
+    mesh = q.device_mesh
+    keep = {bq % q.ndim, hq % q.ndim}
+    strided = {pl.dim % q.ndim for pl in q.placements
+               if _shards(pl) and type(pl) is not Shard}
+    q = reduce_partial(gather_dims(q, set(range(q.ndim)) - keep | strided))
+    heads = [i for i, pl in enumerate(q.placements)
+             if type(pl) is Shard and pl.dim == hq % q.ndim]
+    n_kv = kvs[0].shape[hk]
+    plan = None
+    if heads:
+        n = mesh.shape[heads[0]]
+        if n_kv % n:
+            plan = _head_plan(q, hq, n_kv)
+        if len(heads) > 1 or q.shape[hq] % n or (n_kv % n and plan is None):
+            q, heads, plan = gather_dims(q, (hq,)), [], None
+    rows = None
+    if sq is not None and not heads:
+        free = [i for i, pl in enumerate(q.placements) if pl.is_replicate()
+                and q.shape[sq] % mesh.shape[i] == 0]
+        if free:
+            rows = free[-1]
+            pls = list(q.placements)
+            pls[rows] = Shard(sq % q.ndim)
+            q = q.redistribute(mesh, pls)     # a local slice
+    locs = []
+    for kv in kvs:
+        want = []
+        for i, pl in enumerate(q.placements):
+            if type(pl) is Shard and pl.dim == bq % q.ndim:
+                want.append(Shard(bk % kv.ndim))
+            elif heads and i == heads[0] and plan is None:
+                want.append(Shard(hk % kv.ndim))
+            else:
+                want.append(Replicate())
+        kv = reduce_partial(kv)
+        if list(kv.placements) != want:
+            kv = kv.redistribute(mesh, want)
+        split = plan[0] if plan is not None else rows
+        if split is None:
+            locs.append(kv.to_local())
+            continue
+        grad_pls = [Partial() if j == split else pl
+                    for j, pl in enumerate(want)]
+        local = kv.to_local(grad_placements=grad_pls)
+        if plan is not None:
+            _, _, lo, n_d, idx = plan
+            local = local.narrow(hk, lo, n_d)
+            if idx is not None:
+                local = local.index_select(
+                    hk, torch.tensor(idx, device=local.device))
+        locs.append(local)
+    if rows is None:
+        return from_local(fn(q.to_local(), *locs), mesh, q.placements)
+    start = mesh.get_local_rank(rows) * (q.shape[sq] // mesh.shape[rows])
+    out = from_local(fn(q.to_local(), *locs, q_start=start), mesh,
+                      q.placements)
+    return gather_dims(out, (sq,))
+
+
+def rows_only(x, dim=0):
+    """``x`` with no shard but its plain shards of ``dim`` and no partial
+    sum left (a strided shard of ``dim`` gathered too): its local tensor
+    is then a block of whole rows."""
+    x = reduce_partial(x)
+    d = dim % x.ndim
+    other = set(range(x.ndim)) - {d}
+    if any(_shards(pl) and type(pl) is not Shard and pl.dim % x.ndim == d
+           for pl in x.placements):
+        other.add(d)
+    return gather_dims(x, other)
+
+
+def _batch_mesh_dims(x, dim):
+    return [i for i, pl in enumerate(x.placements)
+            if type(pl) is Shard and pl.dim == dim % x.ndim]
+
+
+def shard_index(mesh, placements, dim):
+    """(index, count) of this rank's block of a tensor's dim ``dim`` placed
+    by ``placements`` on ``mesh``: the mesh dims that split it taken in
+    mesh order (the first the slowest, as ``Shard`` on several mesh dims
+    splits)."""
+    index, count = 0, 1
+    for i, pl in enumerate(placements):
+        if type(pl) is Shard and pl.dim == dim:
+            n = mesh.shape[i]
+            index, count = index * n + mesh.get_local_rank(i), count * n
+    return index, count
+
+
+class _SumInto(torch.autograd.Function):
+    """``sum_into``; the backward hands each rank the gradient of its
+    summand, which is the sum's (no ``Replicate`` -> ``Partial`` split of
+    it)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, pls, want):
+        ctx.mesh = mesh
+        ctx.pls = [Replicate() if pl.is_partial() else pl for pl in pls]
+        return from_local(local, mesh, pls).redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.pls).to_local(), None, None, None
+
+
+def sum_into(local, mesh, pls, want):
+    """Each rank's ``local`` as one ``DTensor`` placed by ``pls`` (its
+    ``Partial`` mesh dims summing the ranks' tensors), redistributed to
+    ``want`` (a partial sum to a shard: a reduce-scatter)."""
+    return _SumInto.apply(local, mesh, list(pls), list(want))
+
+
+def all_gather_rows(local, like, dim):
+    """Every token shard's ``local`` (the same shape on each rank), stacked
+    in the shards' order on a new leading dim: (shards, *local.shape), a
+    plain tensor on every rank (an all-gather over the mesh dims that
+    shard ``like``'s dim ``dim``)."""
+    dims = _batch_mesh_dims(like, dim)
+    pls = [Shard(0) if i in dims else Replicate()
+           for i in range(like.device_mesh.ndim)]
+    return from_local(local[None], like.device_mesh, pls).full_tensor()
+
+
+def whole_rows(x, dim, grad_partial):
+    """``x`` gathered over the mesh dims that shard its dim ``dim`` (every
+    token on every rank), as a plain tensor; its gradient is a partial sum
+    over the mesh dims ``grad_partial`` (each rank's use of the rows its
+    own work reads)."""
+    from torch.distributed.tensor import Partial
+
+    x = gather_dims(x, (dim,))
+    return x.to_local(grad_placements=[
+        Partial() if i in grad_partial else pl
+        for i, pl in enumerate(x.placements)])
 
 
 class _GatherGrad(torch.autograd.Function):
